@@ -5,18 +5,29 @@
     python3 chip_smoke.py --profile  # and a torch.profiler breakdown
 
 Run from the root of a checkout on a machine with an NVIDIA H100 and the
-CUDA toolkit. It builds the quantizer kernels from
-``src/repro_torch/kernels/csrc/quantize_block.cu``, checks every kernel
-against its plain PyTorch version at the main path's shapes and times
-both, then drives one FedMM round of Algorithm 2 through the port's
-entry points (``repro_torch.api.run``/``step`` and the ``Compressor``
-methods) at full width, and checks what comes out. Each phase prints one
-JSON line; the last line is ``{"ok": true, "device": {...}}``. Any failed
-check raises and the script exits non-zero. Without a CUDA device it
-exits non-zero and prints no result. TF32 is off for every float32
-product (``allow_tf32 = False`` for matmul and cuDNN).
+CUDA toolkit. It builds the three kernel sources of
+``src/repro_torch/kernels/csrc/`` (one ``nvcc`` each, started together),
+checks every kernel against its plain PyTorch version at the main paths'
+shapes and times both, then drives the port's two paths through their
+entry points at full width and checks what comes out:
 
-The workload: the quadratic surrogate (Example 1) of a federated
+1. one FedMM round of Algorithm 2 (``repro_torch.api.run``/``step`` and
+   the ``Compressor`` methods), which runs the quantizer kernels;
+2. serving (``repro_torch.launch.serve.serve``: prefill, then greedy
+   decode with the ring-buffer KV cache) of phi3-medium-14b (40 layers,
+   bf16, the flash-attention kernel in every prefill layer; then the
+   int8 KV cache) and of rwkv6-3b (32 layers, bf16, the WKV6 kernel in
+   every prefill layer), random weights from a seed, batch 4, 2048-token
+   prompts; plus a decode-consistency check of each on a full-width
+   two-layer float32 build.
+
+Each phase prints one JSON line; the last line is ``{"ok": true,
+"device": {...}}``. Any failed check raises and the script exits
+non-zero. Without a CUDA device it exits non-zero and prints no result.
+TF32 is off for every float32 product (``allow_tf32 = False`` for matmul
+and cuDNN).
+
+The FedMM workload: the quadratic surrogate (Example 1) of a federated
 multi-output least-squares objective
 ``loss(batch, theta) = 1/2 mean_b ||x_b @ theta["w"] + theta["b"] - y_b||^2``
 whose iterate is one full-width phi3-medium-14b MLP projection
@@ -50,10 +61,27 @@ GAMMA = 0.5
 RHO = 0.02                        # <= 1 / L: L ~ 30 for unit-normal x
 SEED = 0
 
-# the H100 SXM's memory rate and float32 (non-tensor-core) rate, from
-# NVIDIA's data sheet: the card the bounds are stated for
+# the serving path: batch, prompt and new tokens of every serve phase
+SERVE_BATCH, PROMPT_LEN, NEW_TOKENS, NEW_TOKENS_INT8 = 4, 2048, 32, 8
+CONSISTENCY_TOL = 5e-3            # tests/test_models_smoke.py, float32
+# kernel against plain version, |got - want| <= atol + rtol |want|. Both
+# sides compute in float32 and differ only in the order of their sums, so
+# a bf16 output may differ by the rounding of that result: one bf16 ulp is
+# 2^-8 to 2^-7 of |want| (rtol 1.6e-2 leaves two to four), and atol covers
+# outputs that cancel to near zero. float32: tests/test_kernels.py.
+BF16_TOL = {"atol": 4e-3, "rtol": 1.6e-2}
+FLASH_TOL = {"float32": {"atol": 2e-5, "rtol": 2e-4}, "bfloat16": BF16_TOL}
+RWKV_TOL = {"y": BF16_TOL, "state": {"atol": 1e-4, "rtol": 1e-4}}
+# the old bf16 limit (rtol = atol = 3e-2), reported beside the planted
+# faults to show what it let through
+LOOSE_BF16_TOL = {"atol": 3e-2, "rtol": 3e-2}
+
+# the H100 SXM's memory rate, float32 (non-tensor-core) rate and bf16
+# tensor-core rate, from NVIDIA's data sheet: the card the bounds are
+# stated for
 H100_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12
 
 REPLACES = {
     "quantize": "src/repro/kernels/quantize_block.py:205",
@@ -61,8 +89,12 @@ REPLACES = {
     "encode": "src/repro/kernels/quantize_block.py:257",
     "encode_seeded": "src/repro/kernels/quantize_block.py:247",
     "decode_reduce": "src/repro/kernels/quantize_block.py:318",
+    "flash_attention": "src/repro/kernels/flash_attention.py:93",
+    "rwkv_scan": "src/repro/kernels/rwkv_scan.py:68",
 }
 SOURCE = "src/repro_torch/kernels/csrc/quantize_block.cu"
+LM_SOURCES = {"flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
+              "rwkv_scan": "src/repro_torch/kernels/csrc/rwkv_scan.cu"}
 
 # operations per element, counted from the kernels' source: the rounding
 # (abs, max, div, mul, floor, sub, compare, add, and for the dequantize two
@@ -105,6 +137,29 @@ def require(cond: bool, what: str) -> None:
         raise AssertionError(what)
 
 
+def bound(nbytes: float, ops: float, ops_per_s: float):
+    """(bound_ms, bound_by): the larger of the bytes over the memory rate
+    and the operations over the peak rate of their type."""
+    by_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    by_ops = ops / ops_per_s * 1e3
+    return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops
+                                   else "operations")
+
+
+def max_abs_err(a, b) -> float:
+    import torch
+    return float((a.to(torch.float64) - b.to(torch.float64)).abs().max())
+
+
+def worst_ratio(got, want, tol: dict) -> float:
+    """max |got - want| / (atol + rtol |want|), in float64: the check
+    passes where this is at most 1."""
+    import torch
+    g, w = got.to(torch.float64), want.to(torch.float64)
+    return float(((g - w).abs() / (tol["atol"] + tol["rtol"] * w.abs()))
+                 .max())
+
+
 def bits_equal(a, b) -> bool:
     import torch
     if a.shape != b.shape or a.dtype != b.dtype:
@@ -137,16 +192,11 @@ def kernel_checks(qb):
         entry = {"name": name, "route": "cuda", "source": SOURCE,
                  "replaces": REPLACES[name], "max_abs_err": err,
                  "library_ms": None}
-        by_bytes = nbytes / H100_BYTES_PER_S * 1e3
-        by_ops = ops / F32_OPS_PER_S * 1e3
-        entry["bound_ms"] = max(by_bytes, by_ops)
-        entry["bound_by"] = "bytes" if by_bytes >= by_ops else "operations"
+        entry["bound_ms"], entry["bound_by"] = bound(nbytes, ops,
+                                                     F32_OPS_PER_S)
         entry["ms"] = time_ms(kern, iters)
         entry["plain_ms"] = time_ms(plain, max(2, iters // 10), 1)
         results[name] = entry
-
-    def max_err(a, b):
-        return float((a.to(torch.float64) - b.to(torch.float64)).abs().max())
 
     cases = {
         "quantize": (lambda: qb.quantize_grouped(x, u, bits=BITS, group=g),
@@ -174,9 +224,9 @@ def kernel_checks(qb):
         got, want = kern(), plain()
         if isinstance(got, tuple):
             same = all(bits_equal(a, b) for a, b in zip(got, want))
-            err = max(max_err(a, b) for a, b in zip(got, want))
+            err = max(max_abs_err(a, b) for a, b in zip(got, want))
         else:
-            same, err = bits_equal(got, want), max_err(got, want)
+            same, err = bits_equal(got, want), max_abs_err(got, want)
         require(same, f"{name}: kernel differs from its plain version")
         record(name, kern, plain, err, nbytes, ops, iters=20)
         del got, want
@@ -204,7 +254,7 @@ def kernel_checks(qb):
     require(bool(torch.allclose(got, dot, rtol=1e-5, atol=1e-5)),
             "decode_reduce: disagrees with a tensordot over the stack")
     del stack, dot
-    record("decode_reduce", kern, plain, max_err(got, want),
+    record("decode_reduce", kern, plain, max_abs_err(got, want),
            N_CLIENTS * (n + 4 * n // g) + 4 * N_CLIENTS + 4 * n,
            OPS_REDUCE * N_CLIENTS * n, iters=10)
     return results
@@ -414,16 +464,356 @@ def drive_slice():
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 4: the LM kernels against their plain versions, at the path's shapes
+# ---------------------------------------------------------------------------
+
+def _randn(shape, gen, dtype):
+    import torch
+    return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+
+def _attention_keeping(q, k, v, keep):
+    """Plain float32 GQA attention over the (Sq, Sk) pairs ``keep`` marks,
+    cast to q's dtype."""
+    import torch
+    Bq, Sq, H, hd = q.shape
+    KV = k.shape[2]
+    qg = q.float().reshape(Bq, Sq, KV, H // KV, hd)
+    logits = torch.einsum("bqkgh,bskh->bkgqs", qg, k.float()) / hd ** 0.5
+    logits.masked_fill_(~keep, -1e9)
+    w = torch.softmax(logits, dim=-1)
+    del logits
+    out = torch.einsum("bkgqs,bskh->bqkgh", w, v.float())
+    return out.reshape(q.shape).to(q.dtype)
+
+
+def planted_attention_faults(q, k, v, want):
+    """Outputs that a wrong causal kernel would give at the path's shape,
+    held against the plain version ``want`` with the bf16 limit, which
+    must fail each of them: a late 64-key tile (keys S/2 .. S/2 + 63)
+    skipped by every query past it, and a normalizer 3% off. Returns a
+    record per fault, with the ratio under the old 3e-2 limit beside."""
+    import torch
+    S = q.shape[1]
+    pos = torch.arange(S, device=q.device)
+    keep = pos[None, :] <= pos[:, None]
+    lo = S // 2
+    keep[lo + 64:, lo:lo + 64] = False
+    faults = {"late 64-key tile skipped": _attention_keeping(q, k, v, keep),
+              "normalizer 3% off": (want.float() * 1.03).to(want.dtype)}
+    records = []
+    for fault, got in faults.items():
+        ratio = worst_ratio(got, want, BF16_TOL)
+        require(ratio > 1.0, f"the bf16 limit passes a planted fault "
+                f"({fault}): {ratio} x the tolerance")
+        records.append({"fault": fault, "max_abs_err": max_abs_err(got, want),
+                        "worst_ratio": ratio,
+                        "worst_ratio_old_limit": worst_ratio(got, want,
+                                                             LOOSE_BF16_TOL)})
+    return records
+
+
+def lm_kernel_checks():
+    """Flash attention at phi3's prefill shape (bf16, B 4, S 2048, H 40,
+    KV 10, hd 128, causal), a sliding-window and a ragged non-causal
+    shape; the WKV6 scan at rwkv6's prefill shape (bf16, B 4, S 2048,
+    H 40, hd 64). Each against its plain version, with its time, bound
+    and, for attention, the library call's time. Returns (phase record,
+    kernel records)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rwkv_scan as rs
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    bf16 = torch.bfloat16
+    phi3, rwkv = configs.get("phi3-medium-14b"), configs.get("rwkv6-3b")
+    checks = []
+
+    def attention_case(name, B, Sq, Sk, H, KV, hd, causal, window, dtype):
+        q = _randn((B, Sq, H, hd), gen, dtype)
+        k = _randn((B, Sk, KV, hd), gen, dtype)
+        v = _randn((B, Sk, KV, hd), gen, dtype)
+        got = fa.flash_attention(q, k, v, causal=causal, window=window)
+        want = fa.flash_attention_plain(q, k, v, causal=causal,
+                                        window=window)
+        tol = FLASH_TOL[str(dtype).split(".")[1]]
+        err, ratio = max_abs_err(got, want), worst_ratio(got, want, tol)
+        require(ratio <= 1.0,
+                f"flash attention ({name}) differs from its plain version: "
+                f"max abs err {err}, {ratio} x the tolerance {tol}")
+        checks.append({"case": name, "shape": [B, Sq, Sk, H, KV, hd],
+                       "causal": causal, "window": window,
+                       "dtype": str(dtype), "max_abs_err": err,
+                       "worst_ratio": ratio, "tol": tol})
+        return q, k, v, want, err
+
+    # the path's shape first: its record carries the times
+    B, S = SERVE_BATCH, PROMPT_LEN
+    H, KV, hd = phi3.n_heads, phi3.n_kv_heads, phi3.hd
+    q, k, v, want, err = attention_case("phi3 prefill", B, S, S, H, KV, hd,
+                                        True, 0, bf16)
+    checks[-1]["planted_faults"] = planted_attention_faults(q, k, v, want)
+    del want
+    pos = torch.arange(S, device="cuda")
+    pairs = int((pos[None, :] <= pos[:, None]).sum())      # valid (q, k)
+    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+    flash = {"name": "flash_attention", "route": "cuda",
+             "source": LM_SOURCES["flash_attention"],
+             "replaces": REPLACES["flash_attention"], "max_abs_err": err}
+    flash["bound_ms"], flash["bound_by"] = bound(
+        nbytes, 4 * hd * pairs * B * H, BF16_OPS_PER_S)
+    flash["ms"] = time_ms(lambda: fa.flash_attention(q, k, v), 10)
+    flash["plain_ms"] = time_ms(lambda: fa.flash_attention_plain(q, k, v),
+                                2, 1)
+    # the library yardstick: one PyTorch call on the same inputs, K/V
+    # expanded to the query heads (outside the timed call)
+    qh = q.transpose(1, 2).contiguous()
+    kh = k.repeat_interleave(H // KV, dim=2).transpose(1, 2).contiguous()
+    vh = v.repeat_interleave(H // KV, dim=2).transpose(1, 2).contiguous()
+    lib = F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)
+    ratio = worst_ratio(lib.transpose(1, 2), fa.flash_attention(q, k, v),
+                        BF16_TOL)
+    require(ratio <= 1.0, f"flash attention disagrees with "
+            f"scaled_dot_product_attention: {ratio} x the tolerance")
+    checks[-1]["sdpa_worst_ratio"] = ratio
+    flash["library_ms"] = time_ms(
+        lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=True),
+        10)
+    del q, k, v, qh, kh, vh, lib
+    attention_case("sliding window", 2, 1024, 1024, 16, 4, 64, True, 256,
+                   bf16)
+    attention_case("non-causal ragged", 2, 333, 1000, 8, 4, 32, False, 0,
+                   torch.float32)
+
+    # the WKV6 scan at rwkv6's prefill shape: decays as the model makes
+    # them, exp(-exp(w_raw)) with w_raw near the -2 bias
+    hd = rwkv.rwkv_head_dim
+    H = rwkv.d_model // hd
+    r, kk, vv = (_randn((B, S, H, hd), gen, bf16) for _ in range(3))
+    w = torch.exp(-torch.exp(_randn((B, S, H, hd), gen, torch.float32)
+                             - 2.0)).to(bf16)
+    u = _randn((H, hd), gen, bf16) * 0.1
+    y, st = rs.rwkv_scan(r, kk, vv, w, u)
+    y_want, st_want = rs.rwkv_scan_plain(r, kk, vv, w, u)
+    err_y, err_st = max_abs_err(y, y_want), max_abs_err(st, st_want)
+    ratio_y = worst_ratio(y, y_want, RWKV_TOL["y"])
+    ratio_st = worst_ratio(st, st_want, RWKV_TOL["state"])
+    require(ratio_y <= 1.0, f"WKV6 y differs from its plain version: max "
+            f"abs err {err_y}, {ratio_y} x the tolerance")
+    require(ratio_st <= 1.0, f"WKV6 state differs from its plain version: "
+            f"max abs err {err_st}, {ratio_st} x the tolerance")
+    checks.append({"case": "rwkv6 prefill", "shape": [B, S, H, hd],
+                   "dtype": "torch.bfloat16", "max_abs_err_y": err_y,
+                   "max_abs_err_state": err_st, "worst_ratio_y": ratio_y,
+                   "worst_ratio_state": ratio_st, "tol": RWKV_TOL})
+    n = r.numel()
+    scan = {"name": "rwkv_scan", "route": "cuda",
+            "source": LM_SOURCES["rwkv_scan"],
+            "replaces": REPLACES["rwkv_scan"],
+            "max_abs_err": max(err_y, err_st), "library_ms": None}
+    # r, k, v, w read and y written (bf16), u read and the state written
+    # (f32). The function's float32 operations: per state element and
+    # step, S <- w S + k v (a multiply and an FMA) and r . S (an FMA),
+    # 5 FLOP; the u bonus is rank one, (sum_k r_k u_k k_k) v, 5 FLOP per
+    # (step, head, channel)
+    scan["bound_ms"], scan["bound_by"] = bound(
+        2 * 5 * n + 4 * (u.numel() + st.numel()), 5 * n * hd + 5 * n,
+        F32_OPS_PER_S)
+    scan["ms"] = time_ms(lambda: rs.rwkv_scan(r, kk, vv, w, u), 10)
+    scan["plain_ms"] = time_ms(lambda: rs.rwkv_scan_plain(r, kk, vv, w, u),
+                               2, 1)
+    return ({"phase": "lm_kernels_vs_plain", "checks": checks,
+             "rwkv_scan_us_per_step": scan["ms"] * 1e3 / S,
+             "times_ms": {e["name"]: {f: e[f] for f in (
+                 "ms", "plain_ms", "bound_ms", "library_ms")}
+                 for e in (flash, scan)}},
+            {"flash_attention": flash, "rwkv_scan": scan})
+
+
+# ---------------------------------------------------------------------------
+# phases 5 and 6: serving phi3-medium-14b and rwkv6-3b
+# ---------------------------------------------------------------------------
+
+def _free() -> None:
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _check_served(cfg, toks, info, new_tokens) -> None:
+    require(tuple(toks.shape) == (SERVE_BATCH, new_tokens),
+            f"{cfg.name}: generated ids of shape {tuple(toks.shape)}")
+    require(bool(((toks >= 0) & (toks < cfg.vocab)).all()),
+            f"{cfg.name}: a generated id outside [0, vocab)")
+    require(info["logits_finite"], f"{cfg.name}: a logit is not finite")
+
+
+def decode_consistency(cfg, recurrent: bool):
+    """A full-width two-layer float32 build of ``cfg``: decode(prefill(
+    x[:S]), x[S], pos=S) against prefill(x[:S+1])'s last logits at S =
+    PROMPT_LEN, within CONSISTENCY_TOL (tests/test_models_smoke.py's
+    checks; the attention cache is allocated S + 8 long)."""
+    import dataclasses
+    import torch
+    from repro_torch.models.model import build_model, make_batch
+
+    cfg2 = dataclasses.replace(cfg, n_layers=2, dtype="float32")
+    model = build_model(cfg2, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    params = model.init(gen)
+    toks = make_batch(gen, cfg2, SERVE_BATCH, PROMPT_LEN + 1)["tokens"]
+    S = PROMPT_LEN
+    _, cache = model.prefill(params, {"tokens": toks[:, :S]},
+                             cache_len=None if recurrent else S + 8)
+    got, _ = model.decode(params, cache, toks[:, S:S + 1], S)
+    want, _ = model.prefill(params, {"tokens": toks})
+    got, want = got[..., :cfg.vocab], want[..., :cfg.vocab]
+    err = max_abs_err(got, want)
+    require(bool(torch.isfinite(got).all()), "decode logits not finite")
+    require(worst_ratio(got, want, {"atol": CONSISTENCY_TOL,
+                                    "rtol": CONSISTENCY_TOL}) <= 1.0,
+            f"{cfg.name}: decode disagrees with prefill: {err}")
+    del params, cache
+    _free()
+    return {"layers": 2, "dtype": "float32", "prompt": S,
+            "max_abs_err": err, "tol": CONSISTENCY_TOL}
+
+
+def serve_model(aid: str, launches: dict, per_prefill_name: str,
+                int8_tokens: int, profile: bool):
+    """The serving path for one architecture at full width and depth:
+    random bf16 weights on the card from SEED (one matrix at a time), a
+    warm-up request, then batch SERVE_BATCH of PROMPT_LEN-token prompts
+    with NEW_TOKENS greedy tokens, and (``int8_tokens`` > 0) the same
+    batch with the int8 KV cache. ``launches`` is the kernel's counter:
+    set to 0 just before the measured requests, read just after."""
+    import dataclasses
+    import torch
+    from repro_torch import configs
+    from repro_torch.launch.serve import serve
+    from repro_torch.models.model import build_model, make_batch
+
+    cfg = configs.get(aid)
+    model = build_model(cfg, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = model.init(gen)
+    torch.cuda.synchronize()
+    out = {"phase": f"serve_{aid.split('-')[0]}", "arch": aid,
+           "init_seconds": time.perf_counter() - t0,
+           "parameters": sum(p.numel() for p in params.parameters()),
+           "parameter_bytes": sum(p.numel() * p.element_size()
+                                  for p in params.parameters()),
+           "batch": SERVE_BATCH, "prompt_len": PROMPT_LEN}
+    batch = make_batch(gen, cfg, SERVE_BATCH, PROMPT_LEN)
+    # warm-up: cuBLAS handles and the kernels' libraries load here
+    serve(model, params, batch, 2)
+
+    launches[per_prefill_name] = 0
+    torch.cuda.reset_peak_memory_stats()
+    toks, info = serve(model, params, batch, NEW_TOKENS)
+    out["bf16_kv"] = dict(info, new_tokens=NEW_TOKENS,
+                          launches=launches[per_prefill_name],
+                          peak_bytes=torch.cuda.max_memory_allocated(),
+                          ids_seq0=toks[0].tolist())
+    _check_served(cfg, toks, info, NEW_TOKENS)
+    require(launches[per_prefill_name] == cfg.n_layers,
+            f"{per_prefill_name}: {launches[per_prefill_name]} launches in "
+            f"one prefill, want one per layer ({cfg.n_layers})")
+    if int8_tokens:
+        model8 = build_model(dataclasses.replace(cfg, kv_dtype="int8"),
+                             device="cuda")
+        torch.cuda.reset_peak_memory_stats()
+        toks8, info8 = serve(model8, params, batch, int8_tokens)
+        _check_served(cfg, toks8, info8, int8_tokens)
+        out["int8_kv"] = dict(info8, new_tokens=int8_tokens,
+                              peak_bytes=torch.cuda.max_memory_allocated(),
+                              ids_seq0=toks8[0].tolist())
+    count = launches[per_prefill_name]
+    n_prefills = 2 if int8_tokens else 1
+    require(count == n_prefills * cfg.n_layers,
+            f"{per_prefill_name}: {count} launches in {n_prefills} prefills")
+    out["launches"] = count
+    if profile:
+        emit(profile_serving(model, params, batch))
+    del params
+    _free()
+    out["decode_consistency"] = decode_consistency(cfg, cfg.family == "ssm")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# --profile: where the time goes
+# ---------------------------------------------------------------------------
+
+def profiled(fn, top: int = 12):
+    """Run ``fn`` once under torch.profiler; its wall time, the device's
+    busy and idle share, and the top operators and kernels by device
+    time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+
+    def dev_us(ev):
+        for name in ("self_device_time_total", "self_cuda_time_total"):
+            if hasattr(ev, name):
+                return float(getattr(ev, name))
+        return 0.0
+
+    events = prof.key_averages()
+    # kernels (device events) give the busy time; the operators that
+    # launched them (host events) give the readable breakdown
+    on_device = [e for e in events
+                 if "CUDA" in str(getattr(e, "device_type", ""))]
+    busy_s = sum(dev_us(e) for e in on_device) / 1e6
+    ops = sorted(((dev_us(e), e.key, e.count) for e in events
+                  if e not in on_device), reverse=True)
+    return {"seconds": wall, "device_busy_seconds": busy_s,
+            "idle_share": max(0.0, 1.0 - busy_s / wall),
+            "top_ops": [{"name": k[:60], "ms": us / 1e3, "calls": n}
+                        for us, k, n in ops[:top] if us > 0],
+            "top_kernels": [{"name": e.key[:60], "ms": dev_us(e) / 1e3,
+                             "calls": e.count} for e in sorted(
+                                 on_device, key=dev_us, reverse=True)[:top]]}
+
+
+def profile_serving(model, params, batch):
+    """One warm prefill of the whole batch and one decode step after it."""
+    state = {}
+
+    def prefill():
+        state["logits"], state["cache"] = model.prefill(
+            params, batch, cache_len=PROMPT_LEN + 2)
+
+    def decode():
+        tok = state["logits"][..., :model.cfg.vocab].argmax(-1)
+        model.decode(params, state["cache"], tok, PROMPT_LEN)
+
+    return {"phase": "profile_serve", "arch": model.cfg.name,
+            "prefill": profiled(prefill), "decode_step": profiled(decode)}
+
+
 def profile_rounds():
     """``--profile``: one warm round of each dither under torch.profiler;
     the device time by kernel and the device's idle share of the round."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch import api
     from repro_torch.core import compression as C
     from repro_torch.core.quadratic import quadratic_for_objective
 
-    device, top = "cuda", 12
+    device = "cuda"
     xs, ys = make_workload()
     problem = api.as_problem(quadratic_for_objective(loss_fn, rho=RHO))
     x0 = {"w": torch.zeros((D_MODEL, D_FF), device=device),
@@ -438,38 +828,12 @@ def profile_rounds():
                             torch.Generator().manual_seed(0), device=device)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            api.step(problem, spec, state, (xs, ys), gamma,
-                     torch.Generator().manual_seed(1), device=device)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-
-        def dev_us(ev):
-            for name in ("self_device_time_total", "self_cuda_time_total"):
-                if hasattr(ev, name):
-                    return float(getattr(ev, name))
-            return 0.0
-
-        events = prof.key_averages()
-        # kernels (device events) give the busy time; the operators that
-        # launched them (host events) give the readable breakdown
-        on_device = [e for e in events
-                     if "CUDA" in str(getattr(e, "device_type", ""))]
-        busy_s = sum(dev_us(e) for e in on_device) / 1e6
-        ops = sorted(((dev_us(e), e.key, e.count) for e in events
-                      if e not in on_device), reverse=True)
-        emit({"phase": "profile", "dither": dither, "round_seconds": wall,
-              "step_peak_bytes": torch.cuda.max_memory_allocated(),
-              "device_busy_seconds": busy_s,
-              "idle_share": max(0.0, 1.0 - busy_s / wall),
-              "top_ops": [{"name": k[:60], "ms": us / 1e3, "calls": n}
-                          for us, k, n in ops[:top] if us > 0],
-              "top_kernels": [{"name": e.key[:60], "ms": dev_us(e) / 1e3,
-                               "calls": e.count} for e in sorted(
-                                   on_device, key=dev_us,
-                                   reverse=True)[:top]]})
+        rec = profiled(lambda: api.step(
+            problem, spec, state, (xs, ys), gamma,
+            torch.Generator().manual_seed(1), device=device))
+        emit({"phase": "profile", "dither": dither,
+              "round_seconds": rec.pop("seconds"),
+              "step_peak_bytes": torch.cuda.max_memory_allocated(), **rec})
         del state
 
 
@@ -480,26 +844,38 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import quantize_block as qb
+    from repro_torch.kernels import rwkv_scan as rs
 
     t_start = time.perf_counter()
+    profile = "--profile" in sys.argv[1:]
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
     name = torch.cuda.get_device_name(0)
     t0 = time.perf_counter()
-    lib = qb.build(force=True)
-    qb._lib()
-    ptxas = qb.BUILD_INFO.get("ptxas", "")
+    # one nvcc per source, started together
+    libs = build.build_many([(m.SOURCE, m.NVCC_FLAGS) for m in (qb, fa, rs)],
+                            force=True)
+    for m in (qb, fa, rs):
+        m._lib()
+    ptxas = {}
+    for m in (qb, fa, rs):
+        report = build.BUILD_INFO.get(m.SOURCE.name, "")
+        ptxas[m.SOURCE.name] = {
+            "max_registers": max(map(int, re.findall(
+                r"Used (\d+) registers", report)), default=None),
+            "spill_bytes": sum(map(int, re.findall(
+                r"(\d+) bytes spill stores", report)))}
     emit({"phase": "setup", "card": card, "torch": torch.__version__,
           "cuda": torch.version.cuda, "tf32": False,
-          "build_seconds": time.perf_counter() - t0, "library": lib.name,
-          "max_registers": max(map(int, re.findall(
-              r"Used (\d+) registers", ptxas)), default=None),
-          "spill_bytes": sum(map(int, re.findall(
-              r"(\d+) bytes spill stores", ptxas))),
+          "build_seconds": time.perf_counter() - t0,
+          "libraries": [lib.name for lib in libs], "ptxas": ptxas,
           "memory_bytes_per_s": H100_BYTES_PER_S,
-          "f32_ops_per_s": F32_OPS_PER_S})
+          "f32_ops_per_s": F32_OPS_PER_S,
+          "bf16_ops_per_s": BF16_OPS_PER_S})
 
     kernels = kernel_checks(qb)
     emit({"phase": "kernels_vs_plain", "card": card,
@@ -515,9 +891,22 @@ def main() -> int:
 
     for k, entry in kernels.items():
         entry["launches"] = slice_out["launches"][k]
-    if "--profile" in sys.argv[1:]:
+    if profile:
         torch.cuda.empty_cache()
         profile_rounds()
+    _free()
+
+    lm_phase, lm_kernels = lm_kernel_checks()
+    emit(dict(lm_phase, card=card))
+    _free()
+    for aid, counter, key, int8_tokens in (
+            ("phi3-medium-14b", fa.LAUNCHES, "flash_attention",
+             NEW_TOKENS_INT8),
+            ("rwkv6-3b", rs.LAUNCHES, "rwkv_scan", 0)):
+        served = serve_model(aid, counter, key, int8_tokens, profile)
+        emit(dict(served, card=card))
+        lm_kernels[key]["launches"] = served["launches"]
+    kernels.update(lm_kernels)
     emit({"kernels": list(kernels.values())})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(card, flush=True)

@@ -5,7 +5,9 @@ The caller turns the JAX package's parameters or ``DriverState`` into numpy
 tensors of them on the GPU, or on the device the caller names, and
 ``to_numpy`` goes back. uint32
 arrays (seeds, digests) become int64 tensors, since PyTorch has little
-uint32 arithmetic.
+uint32 arithmetic. bfloat16 arrays (``ml_dtypes.bfloat16``, which
+``torch.tensor`` cannot take) cross through their 16-bit pattern, bit for
+bit. ``model_params_to_torch`` carries a model's weights across.
 """
 from __future__ import annotations
 
@@ -13,6 +15,8 @@ import numpy as np
 import torch
 
 from .api.driver import DriverState, resolve_device
+from .models import transformer as T
+from .models.layers import Params
 from .tree import tree_map
 
 
@@ -22,6 +26,9 @@ def _leaf_to_torch(x, device):
     arr = np.asarray(x)
     if arr.dtype == np.uint32:
         arr = arr.astype(np.int64)
+    if arr.dtype.name == "bfloat16":
+        bits = torch.tensor(arr.view(np.int16), device=device)
+        return bits.view(torch.bfloat16)
     return torch.tensor(arr, device=device)
 
 
@@ -50,3 +57,21 @@ def state_to_numpy(state: DriverState) -> DriverState:
     """The port's ``DriverState`` with numpy leaves; the reference's
     ``DriverState(*state_to_numpy(s))`` rebuilds its own."""
     return DriverState(*(to_numpy(f) for f in state))
+
+
+def model_params_to_torch(cfg, np_params, device=None) -> Params:
+    """The reference's ``build_model(cfg).init(key)`` tree with numpy leaves
+    (``jax.tree.map(np.asarray, params)``) -> the port's parameters on
+    ``device`` (the GPU unless asked otherwise). The reference stacks each
+    cycle position's layers along a leading axis (``params["stack"]``, one
+    tree per position); the port keeps one tree per layer, so layer ``i``
+    is block ``i // c`` of position ``i % c`` for a cycle of ``c``."""
+    dev = resolve_device(device)
+    pattern = T.layer_pattern(cfg)
+    c = T._cycle(pattern)
+    stack = np_params["stack"]
+    layers = [tree_map(lambda a, i=i: a[i // c], stack[i % c])
+              for i in range(len(pattern))]
+    tree = {"embedding": np_params["embedding"], "layers": layers,
+            "final_norm": np_params["final_norm"]}
+    return Params(to_torch(tree, dev))

@@ -1,0 +1,115 @@
+"""GQA flash attention (forward): a CUDA kernel for Hopper, its plain
+PyTorch version beside it.
+
+Replaces ``flash_attention_pallas`` (``repro/kernels/flash_attention.py``):
+``q (B, Sq, H, hd)``, ``k, v (B, Sk, KV, hd)`` -> ``(B, Sq, H, hd)`` in
+``q``'s dtype, online softmax in float32, causal / sliding-window masks
+built from positions, ragged ``Sq`` and ``Sk``.
+
+On the H100 the operations bound it (4 hd flop per valid query-key pair
+per head, at the bf16 tensor-core rate); the kernel in
+``csrc/flash_attention.cu`` is a float32 SIMT kernel, one block per
+64-row query tile looping over 64-key tiles with m, l and the accumulator
+on chip, skipping tiles the masks empty, and reading K/V of the shared KV
+head through its strides (no copy per query head). It takes hd 32, 64 and
+128, float32 and bfloat16. Its source header says what bounds it and
+what the design does about that.
+
+``flash_attention`` takes the plain version for CPU (and shape-only
+``meta``) tensors, launches the kernel for CUDA tensors, and raises for
+anything else; a CUDA tensor never falls back. ``LAUNCHES`` counts the
+kernel's launches; only a launch adds to it.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import build as B
+from . import ref
+
+SOURCE = B.CSRC / "flash_attention.cu"
+NVCC_FLAGS = B.BASE_FLAGS
+HEAD_DIMS = (32, 64, 128)
+
+LAUNCHES = {"flash_attention": 0}
+
+_LIB = None
+
+
+def reset_launches() -> None:
+    LAUNCHES["flash_attention"] = 0
+
+
+def _lib():
+    global _LIB
+    if _LIB is None:
+        P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        _LIB = B.load(SOURCE, NVCC_FLAGS, {
+            "fa_forward": [P, P, P, P, I, I, I, I, I, I, I,
+                           LL, LL, LL, LL, LL, LL, LL, LL, LL, LL, LL, LL,
+                           I, I, I, P]})
+    return _LIB
+
+
+def flash_attention_plain(q, k, v, causal: bool = True, window: int = 0):
+    """``ref.flash_attention_ref`` computed in float32, cast to q's dtype."""
+    f32 = torch.float32
+    return ref.flash_attention_ref(q.to(f32), k.to(f32), v.to(f32),
+                                   causal=causal, window=window).to(q.dtype)
+
+
+def _check_shapes(q, k, v) -> None:
+    if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
+        raise ValueError("want q (B, Sq, H, hd) and k, v (B, Sk, KV, hd)")
+    Bq, _, H, hd = q.shape
+    if k.shape != v.shape or k.shape[0] != Bq or k.shape[3] != hd:
+        raise ValueError(f"k {tuple(k.shape)} and v {tuple(v.shape)} do not "
+                         f"match q {tuple(q.shape)}")
+    if H % k.shape[2]:
+        raise ValueError(f"{H} query heads are not a multiple of "
+                         f"{k.shape[2]} KV heads")
+
+
+def _check_kernel_args(q, k, v) -> None:
+    hd = q.shape[3]
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"the CUDA kernel takes hd in {HEAD_DIMS}, got {hd}")
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"the CUDA kernel takes float32 or bfloat16, got "
+                        f"{q.dtype}")
+    vec = 16 // q.element_size()          # the kernel's 16-byte loads
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.dtype != q.dtype:
+            raise TypeError(f"{name} is {t.dtype}, q is {q.dtype}")
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+        if t.stride(3) != 1:
+            raise ValueError(f"{name}'s head dim must be contiguous")
+        if any(t.stride(d) % vec for d in range(3)) or t.data_ptr() % 16:
+            raise ValueError(f"{name}'s strides and address must allow "
+                             f"16-byte loads along hd")
+
+
+def flash_attention(q, k, v, causal: bool = True, window: int = 0):
+    """q: (B, Sq, H, hd); k, v: (B, Sk, KV, hd) -> (B, Sq, H, hd) in q's
+    dtype. Query i and key j sit at positions i and j: causal keeps
+    j <= i, a window keeps j > i - window."""
+    _check_shapes(q, k, v)
+    if window < 0:
+        raise ValueError(f"window={window}")
+    if B.route(q, "flash attention") == "plain":
+        return flash_attention_plain(q, k, v, causal=causal, window=window)
+    _check_kernel_args(q, k, v)
+    Bq, Sq, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    out = torch.empty_like(q, memory_format=torch.contiguous_format)
+    rc = _lib().fa_forward(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        int(q.dtype == torch.bfloat16), Bq, Sq, Sk, H, KV, hd,
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
+        int(causal), int(window), q.device.index or 0, B.stream_of(q))
+    B.check(rc, "flash attention")
+    LAUNCHES["flash_attention"] += 1
+    return out

@@ -1,7 +1,8 @@
-"""Public wrappers for the quantizer kernels (the counterparts of
-``repro/kernels/ops.py``). Each pads or reshapes to the kernel's (R, D)
-view and calls ``quantize_block``, which launches the CUDA kernel for CUDA
-tensors and takes the plain version on the CPU.
+"""Public wrappers for the kernels (the counterparts of
+``repro/kernels/ops.py``). The quantizer wrappers pad or reshape to the
+kernel's (R, D) view and call ``quantize_block``; ``flash_attention`` and
+``rwkv_wkv`` call their kernel modules. Each kernel module launches its
+CUDA kernel for CUDA tensors and takes its plain version on the CPU.
 
 The shard_map wrappers of the reference (``quantize_dequantize_sharded``,
 ``quantize_encode_sharded``) belong to the multi-GPU slice and are not
@@ -12,7 +13,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from . import flash_attention as fa
 from . import quantize_block as qb
+from . import rwkv_scan as rs
 
 
 def quantize_dequantize_with_dither(x, u, bits: int = 8, block: int = 256):
@@ -58,6 +61,35 @@ def dequantize_reduce_grouped(codes, scales, w, bits: int = 8,
     w (C,) f32."""
     return qb.decode_reduce_grouped(codes, scales, w.to(torch.float32),
                                     bits=bits, group=group)
+
+
+def _tpu_tiles_at_default(**given) -> None:
+    """The reference's tile arguments have no counterpart here: a value
+    other than the default would select nothing, so it is refused."""
+    defaults = {"q_block": 128, "kv_block": 128, "chunk": 64}
+    for name, value in given.items():
+        if value != defaults[name]:
+            raise ValueError(
+                f"{name}={value}: the TPU kernel's tile size selects nothing "
+                f"in the Hopper kernel, whose tiles are its own; leave it at "
+                f"{defaults[name]}")
+
+
+def flash_attention(q, k, v, causal: bool = True, window: int = 0,
+                    q_block: int = 128, kv_block: int = 128):
+    """GQA attention: q (B, Sq, H, hd), k, v (B, Sk, KV, hd) -> (B, Sq, H,
+    hd). ``q_block``/``kv_block`` keep the reference's signature and must
+    stay at their defaults."""
+    _tpu_tiles_at_default(q_block=q_block, kv_block=kv_block)
+    return fa.flash_attention(q, k, v, causal=causal, window=window)
+
+
+def rwkv_wkv(r, k, v, w, u, chunk: int = 64):
+    """The WKV6 recurrence: (y, final state). ``chunk`` keeps the
+    reference's signature and must stay at its default: the Hopper kernel
+    walks time in one pass."""
+    _tpu_tiles_at_default(chunk=chunk)
+    return rs.rwkv_scan(r, k, v, w, u)
 
 
 def rows_view(x, group: int):

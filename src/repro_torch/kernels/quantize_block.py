@@ -18,7 +18,7 @@ shape-only ``meta`` tensors), launches its kernel for CUDA tensors, and
 raises for anything else. A CUDA tensor never falls back to the plain
 version. The kernels live in ``csrc/quantize_block.cu``; the library is
 built with ``nvcc`` at first use into ``build/`` at the root of the
-checkout and bound through ``ctypes``.
+checkout and bound through ``ctypes`` (``kernels/build.py``).
 
 The dither is streamed (``u``) or made in the kernel from ``seed``: the
 in-kernel dither is the murmur hash of the global element index, the same
@@ -29,32 +29,21 @@ variant; only a launch adds to it.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-from pathlib import Path
 
 import torch
 
+from . import build as B
 from . import ref
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "quantize_block.cu"
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
-
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC",
-              # no FMA contraction: the rounding must match the reference
-              "-fmad=false", "-Xptxas", "-v")
+SOURCE = B.CSRC / "quantize_block.cu"
+# no FMA contraction: the rounding must match the reference bit for bit
+NVCC_FLAGS = B.BASE_FLAGS + ("-fmad=false",)
 
 # launches per kernel variant: streamed dither, dither made in the kernel
 LAUNCHES = {"quantize": 0, "quantize_seeded": 0, "encode": 0,
             "encode_seeded": 0, "decode_reduce": 0}
 
 _LIB = None
-# the last build's ptxas report (registers, spills per kernel)
-BUILD_INFO: dict = {}
 
 
 def reset_launches() -> None:
@@ -73,57 +62,16 @@ def kernel_group_ok(group: int) -> bool:
 # build and bind
 # ---------------------------------------------------------------------------
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    default = "/usr/local/cuda/bin/nvcc"
-    if os.path.exists(default):
-        return default
-    raise RuntimeError("nvcc not found: the CUDA kernels are built from "
-                       f"{SOURCE} with the CUDA toolkit")
-
-
-def build(force: bool = False) -> Path:
-    """Compile ``csrc/quantize_block.cu`` into ``build/`` (named by the
-    source's content hash, so an edited source rebuilds). Returns the
-    library's path; keeps ptxas' report in ``BUILD_INFO``."""
-    src = SOURCE.read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    lib = BUILD_DIR / f"libquantize_block_{tag}.so"
-    if lib.exists() and not force:
-        return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed on {SOURCE}:\n{proc.stderr}")
-    os.replace(tmp, lib)
-    BUILD_INFO["ptxas"] = proc.stderr
-    return lib
-
-
 def _lib():
     global _LIB
     if _LIB is None:
-        lib = ctypes.CDLL(str(build()))
         P, I, LL, U = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
             ctypes.c_uint
-        lib.qb_quantize.argtypes = [P, P, P, LL, LL, I, I, U, I, I, P]
-        lib.qb_encode.argtypes = [P, P, P, P, LL, LL, I, I, U, I, I, P]
-        lib.qb_decode_reduce.argtypes = [P, P, P, P, I, LL, LL, I, I, I, P]
-        for fn in (lib.qb_quantize, lib.qb_encode, lib.qb_decode_reduce):
-            fn.restype = ctypes.c_int
-        _LIB = lib
+        _LIB = B.load(SOURCE, NVCC_FLAGS, {
+            "qb_quantize": [P, P, P, LL, LL, I, I, U, I, I, P],
+            "qb_encode": [P, P, P, P, LL, LL, I, I, U, I, I, P],
+            "qb_decode_reduce": [P, P, P, P, I, LL, LL, I, I, I, P]})
     return _LIB
-
-
-def _check(rc: int, name: str) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
 
 
 def _require(t: torch.Tensor, name: str, dtype, device,
@@ -137,16 +85,6 @@ def _require(t: torch.Tensor, name: str, dtype, device,
     if vector and t.data_ptr() % 16:
         raise ValueError(f"{name} must be 16-byte aligned for the vector "
                          f"loads")
-
-
-def _route(x: torch.Tensor) -> str:
-    """'plain' for CPU (and shape-only meta) tensors, 'cuda' for CUDA
-    tensors; any other device is refused."""
-    if x.device.type in ("cpu", "meta"):
-        return "plain"
-    if x.device.type == "cuda":
-        return "cuda"
-    raise ValueError(f"no quantizer kernel for device {x.device}")
 
 
 def _check_grouped(x2: torch.Tensor, group: int, bits: int) -> None:
@@ -169,10 +107,6 @@ def _check_kernel_args(x2, u2, group) -> None:
             raise ValueError(f"u2 shape {tuple(u2.shape)} != x2 shape "
                              f"{tuple(x2.shape)}")
         _require(u2, "u2", torch.float32, x2.device)
-
-
-def _stream(t: torch.Tensor):
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
 
 
 def _seed_u32(seed) -> int:
@@ -235,7 +169,7 @@ def quantize_grouped(x2, u2=None, *, bits: int = 8, group: int = 256,
     _check_grouped(x2, group, bits)
     if u2 is None and seed is None:
         raise ValueError("need streamed draws u2 or an in-kernel dither seed")
-    if _route(x2) == "plain":
+    if B.route(x2, "quantizer") == "plain":
         return quantize_grouped_plain(x2, u2, bits=bits, group=group,
                                       seed=seed)
     _check_kernel_args(x2, u2, group)
@@ -244,8 +178,8 @@ def quantize_grouped(x2, u2=None, *, bits: int = 8, group: int = 256,
         x2.data_ptr(), None if u2 is None else u2.data_ptr(), out.data_ptr(),
         x2.shape[0], x2.shape[1], group, bits,
         _seed_u32(0 if seed is None else seed), int(u2 is None),
-        x2.device.index or 0, _stream(x2))
-    _check(rc, "quantize")
+        x2.device.index or 0, B.stream_of(x2))
+    B.check(rc, "quantize")
     LAUNCHES["quantize" if u2 is not None else "quantize_seeded"] += 1
     return out
 
@@ -257,7 +191,7 @@ def quantize_encode_grouped(x2, u2=None, *, bits: int = 8, group: int = 256,
     _check_grouped(x2, group, bits)
     if u2 is None and seed is None:
         raise ValueError("need streamed draws u2 or an in-kernel dither seed")
-    if _route(x2) == "plain":
+    if B.route(x2, "quantizer") == "plain":
         return quantize_encode_grouped_plain(x2, u2, bits=bits, group=group,
                                              seed=seed)
     _check_kernel_args(x2, u2, group)
@@ -269,8 +203,8 @@ def quantize_encode_grouped(x2, u2=None, *, bits: int = 8, group: int = 256,
         x2.data_ptr(), None if u2 is None else u2.data_ptr(),
         codes.data_ptr(), scales.data_ptr(), R, D, group, bits,
         _seed_u32(0 if seed is None else seed), int(u2 is None),
-        x2.device.index or 0, _stream(x2))
-    _check(rc, "encode")
+        x2.device.index or 0, B.stream_of(x2))
+    B.check(rc, "encode")
     LAUNCHES["encode" if u2 is not None else "encode_seeded"] += 1
     return codes, scales
 
@@ -289,7 +223,7 @@ def decode_reduce_grouped(codes, scales, w, *, bits: int = 8,
                          f"{(C, R, D // group)}")
     if tuple(w.shape) != (C,):
         raise ValueError(f"w shape {tuple(w.shape)} != {(C,)}")
-    if _route(codes) == "plain":
+    if B.route(codes, "quantizer") == "plain":
         return decode_reduce_grouped_plain(codes, scales,
                                            w.to(torch.float32), bits=bits,
                                            group=group)
@@ -302,7 +236,7 @@ def decode_reduce_grouped(codes, scales, w, *, bits: int = 8,
     out = torch.empty((R, D), dtype=torch.float32, device=codes.device)
     rc = _lib().qb_decode_reduce(
         codes.data_ptr(), scales.data_ptr(), w.data_ptr(), out.data_ptr(),
-        C, R, D, group, bits, codes.device.index or 0, _stream(codes))
-    _check(rc, "decode_reduce")
+        C, R, D, group, bits, codes.device.index or 0, B.stream_of(codes))
+    B.check(rc, "decode_reduce")
     LAUNCHES["decode_reduce"] += 1
     return out

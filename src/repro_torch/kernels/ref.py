@@ -1,10 +1,10 @@
-"""Plain PyTorch oracles of the block quantizer (the counterparts of
-``repro/kernels/ref.py``).
+"""Plain PyTorch oracles (the counterparts of ``repro/kernels/ref.py``):
+the block quantizer, flash attention and the RWKV6 WKV recurrence.
 
-Each function repeats the reference's arithmetic operation for operation,
-so that on the same inputs (``x`` and the uniform draws ``u``) it is
-bit-identical to the JAX oracle, to the Pallas kernels in interpret mode,
-and to the CUDA kernels in ``csrc/quantize_block.cu``:
+Each quantizer oracle repeats the reference's arithmetic operation for
+operation, so that on the same inputs (``x`` and the uniform draws ``u``)
+it is bit-identical to the JAX oracle, to the Pallas kernels in interpret
+mode, and to the CUDA kernels in ``csrc/quantize_block.cu``:
 
 * ``y = x / safe * levels`` is a division, then a multiply, each rounded;
 * the dequantize multiplies by the float32 reciprocal ``1 / levels`` in the
@@ -13,6 +13,9 @@ and to the CUDA kernels in ``csrc/quantize_block.cu``:
   arithmetic on the CPU, so ``murmur_u32`` works in int64 and masks to
   32 bits after every step, splitting each multiply so that no int64
   product overflows.
+
+The attention and WKV6 oracles are held to tolerances: their sums run in
+another order than the kernels'.
 """
 from __future__ import annotations
 
@@ -150,3 +153,54 @@ def quantize_block_ref(x: torch.Tensor, u: torch.Tensor, bits: int = 8,
     out = quantize_groups_ref(x.reshape(-1, block), u.reshape(-1, block),
                               bits=bits)
     return out.reshape(-1)
+
+
+# ---------------------------------------------------------------------------
+# flash attention (GQA, causal / sliding window)
+# ---------------------------------------------------------------------------
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True, window: int = 0) -> torch.Tensor:
+    """Naive full-materialization reference. q: (B, Sq, H, hd);
+    k, v: (B, Sk, KV, hd). Query i and key j sit at positions i and j.
+    Returns (B, Sq, H, hd)."""
+    B, Sq, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    qg = q.reshape(B, Sq, KV, G, hd)
+    logits = torch.einsum("bqkgh,bskh->bkgqs", qg, k).to(torch.float32)
+    logits = logits / hd ** 0.5
+    q_pos = torch.arange(Sq, device=q.device)
+    k_pos = torch.arange(Sk, device=q.device)
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= k_pos[None, :] <= q_pos[:, None]
+    if window:
+        mask &= k_pos[None, :] > q_pos[:, None] - window
+    logits = logits.masked_fill(~mask, -1e9)
+    w = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkgqs,bskh->bqkgh", w.to(v.dtype), v)
+    return out.reshape(B, Sq, H, hd)
+
+
+# ---------------------------------------------------------------------------
+# RWKV6 WKV recurrence
+# ---------------------------------------------------------------------------
+
+def rwkv_scan_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  w: torch.Tensor, u: torch.Tensor):
+    """WKV6: r,k,v,w: (B, S, H, hd); u: (H, hd). f32 state (B, H, hd, hd).
+        y_t = r_t . (S_t + diag(u) k_t^T v_t);  S_{t+1} = diag(w_t) S_t + k_t^T v_t
+    A loop over time in f32. Returns (y (B, S, H, hd) in r's dtype,
+    final_state)."""
+    B, S, H, hd = r.shape
+    rf, kf, vf, wf = (t.to(torch.float32) for t in (r, k, v, w))
+    uf = u.to(torch.float32)[None, :, :, None]
+    state = torch.zeros((B, H, hd, hd), dtype=torch.float32, device=r.device)
+    ys = []
+    for t in range(S):
+        kv = kf[:, t, :, :, None] * vf[:, t, :, None, :]
+        ys.append(torch.einsum("bhk,bhkv->bhv", rf[:, t], state + uf * kv))
+        state = wf[:, t, :, :, None] * state + kv
+    y = torch.stack(ys, dim=1) if ys else torch.zeros_like(rf)
+    return y.to(r.dtype), state

@@ -1,0 +1,295 @@
+"""Transformer building blocks (the port of ``repro/models/layers.py``):
+norms, RoPE, GQA attention (full / sliding / cross), the int8 ring-buffer
+KV cache, SwiGLU MLP, embeddings. Functions over parameter trees, with
+the reference's names and its ``(d_in, d_out)`` weight layout (``x @ w``);
+norm and softmax statistics in float32.
+
+Full-sequence attention runs the flash-attention kernel
+(``ops.flash_attention``) where the reference calls its jnp
+``blocked_attention``; decode attention stays plain PyTorch, as in the
+reference. ``chunked_softmax_xent`` belongs to training and is not here.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..kernels import ops
+
+NEG_INF = -1e9  # safe for bf16/f32 masking
+
+
+# ---------------------------------------------------------------------------
+# parameter trees
+# ---------------------------------------------------------------------------
+
+class Params(nn.Module):
+    """A nested dict of weights as an ``nn.Module``: dicts become
+    submodules, lists ``nn.ModuleList``s, tensors ``nn.Parameter``s.
+    ``p[key]`` reads any of them, so the functions below take a ``Params``
+    or a plain dict alike. The parameters do not require gradients: this
+    tree serves (no autograd graph is kept)."""
+
+    def __init__(self, tree: dict):
+        super().__init__()
+        for key, val in tree.items():
+            if isinstance(val, dict):
+                self.add_module(key, Params(val))
+            elif isinstance(val, (list, tuple)):
+                self.add_module(key, nn.ModuleList(Params(t) for t in val))
+            else:
+                self.register_parameter(
+                    key, nn.Parameter(val, requires_grad=False))
+
+    def __getitem__(self, key: str):
+        return getattr(self, key)
+
+
+# ---------------------------------------------------------------------------
+# init helpers
+# ---------------------------------------------------------------------------
+
+def dense_init(gen: torch.Generator, d_in: int, d_out: int, dtype):
+    """N(0, 1/d_in) weights (d_in, d_out), drawn in float32 on
+    ``gen``'s device and cast: one float32 matrix at a time."""
+    w = torch.randn((d_in, d_out), generator=gen, device=gen.device)
+    return w.mul_(1.0 / math.sqrt(d_in)).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# norms
+# ---------------------------------------------------------------------------
+
+def rmsnorm_init(d: int, dtype, device):
+    return {"scale": torch.ones((d,), dtype=dtype, device=device)}
+
+
+def rmsnorm(params, x, eps=1e-5):
+    """The reference's own eps (1e-5): no caller passes ``cfg.norm_eps``."""
+    xf = x.to(torch.float32)
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps)
+    return (out * params["scale"].to(torch.float32)).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+def rope(x, positions, theta=1e4):
+    """x: (..., S, H, hd) even hd; positions: broadcastable to (..., S).
+    Rotates interleaved pairs (x[..., 0::2], x[..., 1::2]), as the
+    reference does, not the two halves."""
+    hd = x.shape[-1]
+    exps = torch.arange(0, hd, 2, dtype=torch.float32, device=x.device) / hd
+    freqs = 1.0 / (theta ** exps)
+    ang = positions[..., None].to(torch.float32) * freqs    # (..., S, hd/2)
+    cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+    x1, x2 = x[..., 0::2], x[..., 1::2]
+    xr1 = x1 * cos - x2 * sin
+    xr2 = x1 * sin + x2 * cos
+    return torch.stack([xr1, xr2], dim=-1).reshape(x.shape).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# GQA attention
+# ---------------------------------------------------------------------------
+
+def attention_init(gen, cfg, dtype):
+    hd = cfg.hd
+    return {
+        "wq": dense_init(gen, cfg.d_model, cfg.n_heads * hd, dtype),
+        "wk": dense_init(gen, cfg.d_model, cfg.n_kv_heads * hd, dtype),
+        "wv": dense_init(gen, cfg.d_model, cfg.n_kv_heads * hd, dtype),
+        "wo": dense_init(gen, cfg.n_heads * hd, cfg.d_model, dtype),
+    }
+
+
+def _split_heads(x, n_heads, hd):
+    return x.reshape(x.shape[:-1] + (n_heads, hd))
+
+
+def _positions(n: int, device):
+    return torch.arange(n, device=device)[None]
+
+
+def gqa_scores_mask(q_pos, k_pos, window: int = 0, causal: bool = True):
+    """(Sq, Sk) boolean mask: True = attend."""
+    m = torch.ones((q_pos.shape[0], k_pos.shape[0]), dtype=torch.bool,
+                   device=q_pos.device)
+    if causal:
+        m &= k_pos[None, :] <= q_pos[:, None]
+    if window:
+        m &= k_pos[None, :] > q_pos[:, None] - window
+    return m
+
+
+def gqa_attention(params, cfg, x, kv_x=None, mask=None, positions=None,
+                  kv_positions=None, use_rope=True):
+    """General GQA attention. x: (B, Sq, d); kv_x for cross-attention.
+    mask: (Sq, Sk) or None (no masking). Returns (B, Sq, d)."""
+    hd, H, KV = cfg.hd, cfg.n_heads, cfg.n_kv_heads
+    kv_in = x if kv_x is None else kv_x
+    q = _split_heads(x @ params["wq"], H, hd)
+    k = _split_heads(kv_in @ params["wk"], KV, hd)
+    v = _split_heads(kv_in @ params["wv"], KV, hd)
+    if use_rope:
+        if positions is None:
+            positions = _positions(x.shape[1], x.device)
+        if kv_positions is None:
+            kv_positions = _positions(kv_in.shape[1], x.device)
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, kv_positions, cfg.rope_theta)
+    out = gqa_core(q, k, v, mask)
+    out = out.reshape(out.shape[:2] + (H * hd,))
+    return out @ params["wo"]
+
+
+def gqa_core(q, k, v, mask=None, kv_valid=None):
+    """q: (B, Sq, H, hd), k/v: (B, Sk, KV, hd). GQA via head grouping.
+    Softmax statistics in f32. ``kv_valid``: optional (Sk,) bool marking
+    filled cache slots (decode with a partially filled cache).
+    Returns (B, Sq, H, hd)."""
+    B, Sq, H, hd = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    q = q.reshape(B, Sq, KV, G, hd)
+    logits = torch.einsum("bqkgh,bskh->bkgqs", q, k).to(torch.float32)
+    logits = logits / math.sqrt(hd)
+    if mask is not None:
+        logits = logits.masked_fill(~mask[None, None, None], NEG_INF)
+    if kv_valid is not None:
+        logits = logits.masked_fill(~kv_valid[None, None, None, None],
+                                    NEG_INF)
+    w = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkgqs,bskh->bqkgh", w.to(v.dtype), v)
+    return out.reshape(B, Sq, H, hd)
+
+
+def kv_quantize(t):
+    """Per-(token, head) int8 quantization of K/V: t (B, S, KV, hd) ->
+    (codes int8, scale bf16 (B, S, KV, 1)). Rounds half to even, as
+    ``jnp.round`` does."""
+    tf = t.to(torch.float32)
+    scale = torch.amax(torch.abs(tf), dim=-1, keepdim=True)
+    safe = torch.where(scale > 0, scale, torch.ones_like(scale))
+    q = torch.round(tf / safe * 127.0).to(torch.int8)
+    return q, (safe / 127.0).to(torch.bfloat16)
+
+
+def kv_dequantize(q, scale, dtype):
+    return (q.to(torch.float32) * scale.to(torch.float32)).to(dtype)
+
+
+def decode_attention(params, cfg, x, cache, pos: int, use_rope=True):
+    """One-token decode: x (B, 1, d); cache {"k","v"[,"k_scale","v_scale"]}
+    with k/v (B, S, KV, hd) (int8 codes + scales when cfg.kv_dtype=="int8").
+    The new token's K/V are written into the cache as a ring buffer at
+    ``pos % S`` and the query attends over the full (updated) cache. The
+    port writes the slot in place (the reference returns a new cache), so
+    a step never copies the cache. Returns (out (B, 1, d), cache)."""
+    hd, H, KV = cfg.hd, cfg.n_heads, cfg.n_kv_heads
+    int8 = getattr(cfg, "kv_dtype", "") == "int8"
+    S = cache["k"].shape[1]
+    q = _split_heads(x @ params["wq"], H, hd)
+    k_new = _split_heads(x @ params["wk"], KV, hd)
+    v_new = _split_heads(x @ params["wv"], KV, hd)
+    if use_rope:
+        at = torch.full((1, 1), pos, device=x.device)
+        q = rope(q, at, cfg.rope_theta)
+        k_new = rope(k_new, at, cfg.rope_theta)
+    slot = pos % S
+
+    def write(name, val):
+        cache[name][:, slot:slot + 1] = val.to(cache[name].dtype)
+
+    if int8:
+        kq, ks = kv_quantize(k_new)
+        vq, vs = kv_quantize(v_new)
+        write("k", kq)
+        write("v", vq)
+        write("k_scale", ks)
+        write("v_scale", vs)
+        k_att = kv_dequantize(cache["k"], cache["k_scale"], x.dtype)
+        v_att = kv_dequantize(cache["v"], cache["v_scale"], x.dtype)
+    else:
+        write("k", k_new)
+        write("v", v_new)
+        k_att, v_att = cache["k"], cache["v"]
+    # slot i holds position i (mod S); every slot with index <= pos is
+    # filled -- once the ring wraps (pos >= S) everything is valid.
+    kv_valid = torch.arange(S, device=x.device) <= pos
+    out = gqa_core(q, k_att, v_att, mask=None, kv_valid=kv_valid)
+    out = out.reshape(out.shape[:2] + (H * hd,))
+    return out @ params["wo"], cache
+
+
+def full_seq_attention(params, cfg, x, *, causal=True, window=0, kv_x=None,
+                       use_rope=True, positions=None):
+    """Projection + RoPE + flash attention + output projection.
+    x: (B, S, d). kv_x (cross-attention) implies non-causal, no RoPE on kv.
+    Returns (out, k, v)."""
+    hd, H, KV = cfg.hd, cfg.n_heads, cfg.n_kv_heads
+    kv_in = x if kv_x is None else kv_x
+    q = _split_heads(x @ params["wq"], H, hd)
+    k = _split_heads(kv_in @ params["wk"], KV, hd)
+    v = _split_heads(kv_in @ params["wv"], KV, hd)
+    if use_rope:
+        if positions is None:
+            positions = _positions(x.shape[1], x.device)
+        q = rope(q, positions, cfg.rope_theta)
+        if kv_x is None:
+            k = rope(k, positions, cfg.rope_theta)
+        else:
+            k = rope(k, _positions(kv_in.shape[1], x.device), cfg.rope_theta)
+    out = ops.flash_attention(q, k, v, causal=causal, window=window)
+    out = out.reshape(out.shape[:2] + (H * hd,))
+    return out @ params["wo"], k, v
+
+
+# ---------------------------------------------------------------------------
+# SwiGLU MLP
+# ---------------------------------------------------------------------------
+
+def mlp_init(gen, d, ff, dtype):
+    return {
+        "w_gate": dense_init(gen, d, ff, dtype),
+        "w_in": dense_init(gen, d, ff, dtype),
+        "w_out": dense_init(gen, ff, d, dtype),
+    }
+
+
+def mlp(params, x):
+    h = F.silu(x @ params["w_gate"]) * (x @ params["w_in"])
+    return h @ params["w_out"]
+
+
+# ---------------------------------------------------------------------------
+# Embedding / LM head (vocab padded to a multiple of 128)
+# ---------------------------------------------------------------------------
+
+def embedding_init(gen, cfg, dtype):
+    V = cfg.padded_vocab
+
+    def table():
+        t = torch.randn((V, cfg.d_model), generator=gen, device=gen.device)
+        return t.mul_(0.02).to(dtype)
+
+    return {"embed": table(), "lm_head": table()}
+
+
+def embed(params, tokens):
+    return F.embedding(tokens, params["embed"])
+
+
+def logits_fn(params, x, cfg):
+    """x: (B, S, d) -> (B, S, V_padded); padded tail masked to NEG_INF."""
+    logits = x @ params["lm_head"].T
+    pad = cfg.padded_vocab - cfg.vocab
+    if pad:
+        mask = torch.arange(cfg.padded_vocab, device=x.device) < cfg.vocab
+        logits = logits.masked_fill(~mask, NEG_INF)
+    return logits

@@ -1,0 +1,138 @@
+"""Layer stacks (the port of ``repro/models/transformer.py``).
+
+Layer "kinds" (composable sublayer patterns):
+  attn_mlp   pre-norm GQA attention + SwiGLU MLP        (dense / global)
+  rwkv       RWKV6 time-mix + channel-mix               (rwkv6)
+and, still to port (ROADMAP Queue A item 11), swa_mlp (gemma3 local),
+attn_moe (llama4 / qwen3 / jamba), mamba_mlp and mamba_moe (jamba),
+cross_mlp (whisper decoder) and enc_mlp (whisper encoder).
+
+The reference stacks each cycle position's parameters along a leading
+axis and runs the stack under ``jax.lax.scan``; the port keeps one
+parameter tree per layer and runs the stack as a Python loop
+(``interop.model_params_to_torch`` unstacks the reference's trees).
+"""
+from __future__ import annotations
+
+from . import layers as L
+from . import rwkv as R
+
+PORTED_KINDS = ("attn_mlp", "rwkv")
+
+
+def _not_ported(kind):
+    return NotImplementedError(
+        f"layer kind {kind!r} is not ported yet (ROADMAP Queue A item 11: "
+        f"the port serves the kinds {PORTED_KINDS})")
+
+
+# ---------------------------------------------------------------------------
+# per-kind init / full-seq forward / decode
+# ---------------------------------------------------------------------------
+
+def layer_init(kind, gen, cfg, dtype):
+    if kind == "attn_mlp":
+        dev = gen.device
+        return {"norm1": L.rmsnorm_init(cfg.d_model, dtype, dev),
+                "attn": L.attention_init(gen, cfg, dtype),
+                "norm2": L.rmsnorm_init(cfg.d_model, dtype, dev),
+                "mlp": L.mlp_init(gen, cfg.d_model, cfg.d_ff, dtype)}
+    if kind == "rwkv":
+        return R.rwkv_block_init(gen, cfg, dtype)
+    raise _not_ported(kind)
+
+
+def layer_forward(kind, params, cfg, x, want_cache=False):
+    """Full-sequence forward. Returns (x, cache_or_None)."""
+    if kind == "attn_mlp":
+        h, k, v = L.full_seq_attention(
+            params["attn"], cfg, L.rmsnorm(params["norm1"], x), causal=True)
+        x = x + h
+        cache = None
+        if want_cache:
+            if getattr(cfg, "kv_dtype", "") == "int8":
+                kq, ks = L.kv_quantize(k)
+                vq, vs = L.kv_quantize(v)
+                cache = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
+            else:
+                cache = {"k": k, "v": v}
+        h = L.mlp(params["mlp"], L.rmsnorm(params["norm2"], x))
+        return x + h, cache
+    if kind == "rwkv":
+        x, state = R.rwkv_block(params, cfg, x)
+        return x, (state if want_cache else None)
+    raise _not_ported(kind)
+
+
+def layer_decode(kind, params, cfg, x, cache, pos):
+    """Single-token decode. x: (B, 1, d). Returns (x, new_cache)."""
+    if kind == "attn_mlp":
+        h, new_cache = L.decode_attention(
+            params["attn"], cfg, L.rmsnorm(params["norm1"], x), cache, pos)
+        x = x + h
+        h = L.mlp(params["mlp"], L.rmsnorm(params["norm2"], x))
+        return x + h, new_cache
+    if kind == "rwkv":
+        return R.rwkv_block(params, cfg, x, state=cache, single_step=True)
+    raise _not_ported(kind)
+
+
+# ---------------------------------------------------------------------------
+# pattern + stack
+# ---------------------------------------------------------------------------
+
+def layer_pattern(cfg):
+    Lh = cfg.n_layers
+    if cfg.family in ("dense", "vlm") and not cfg.global_every:
+        return ["attn_mlp"] * Lh
+    if cfg.global_every:  # gemma3: (k-1) local : 1 global
+        return [("attn_mlp" if (i + 1) % cfg.global_every == 0 else "swa_mlp")
+                for i in range(Lh)]
+    if cfg.family == "moe":
+        return ["attn_moe"] * Lh
+    if cfg.family == "ssm":
+        return ["rwkv"] * Lh
+    if cfg.family == "hybrid":
+        pat = []
+        for i in range(Lh):
+            attn = (i % cfg.attn_every) == (cfg.attn_every - 1)
+            moe = (i % cfg.moe_every) == (cfg.moe_every - 1)
+            if attn:
+                pat.append("attn_moe" if moe else "attn_mlp")
+            else:
+                pat.append("mamba_moe" if moe else "mamba_mlp")
+        return pat
+    if cfg.family == "audio":
+        return ["cross_mlp"] * Lh
+    raise ValueError(cfg.family)
+
+
+def _cycle(pattern):
+    for c in range(1, len(pattern) + 1):
+        if len(pattern) % c == 0 and pattern == pattern[:c] * (len(pattern) // c):
+            return c
+    return len(pattern)
+
+
+def stack_init(gen, cfg, dtype, pattern=None):
+    """One parameter tree per layer, initialised layer by layer (one
+    matrix at a time on ``gen``'s device)."""
+    pattern = pattern or layer_pattern(cfg)
+    return [layer_init(kind, gen, cfg, dtype) for kind in pattern]
+
+
+def stack_forward(pattern, layers, cfg, x, want_cache=False):
+    """Returns (x, per-layer caches)."""
+    caches = []
+    for kind, p in zip(pattern, layers):
+        x, cache = layer_forward(kind, p, cfg, x, want_cache)
+        caches.append(cache)
+    return x, caches
+
+
+def stack_decode(pattern, layers, cfg, x, caches, pos):
+    new = []
+    for kind, p, cache in zip(pattern, layers, caches):
+        x, c2 = layer_decode(kind, p, cfg, x, cache, pos)
+        new.append(c2)
+    return x, new

@@ -1,0 +1,329 @@
+"""The port's attention against the JAX package on the CPU.
+
+``ops.flash_attention`` (the kernel's plain version on CPU tensors) is held
+against ``flash_attention_pallas`` in interpret mode on every shape of
+``tests/test_kernels.py``'s ``TestFlashAttentionKernel``, at its
+float32 tolerances (2e-4 / 2e-5) and, in bfloat16, a few bf16 ulps
+(both sides round one float32 result), tighter than its 3e-2. The layers of
+``models/layers.py`` (rmsnorm, rope, gqa_core, the int8 KV quantizer,
+decode attention over a bf16 and an int8 ring-buffer cache, full-sequence
+attention) are held against ``repro.models.layers``. Inputs come from a
+numpy seed and go through both packages. ``tests/test_torch_cuda_lm.py``
+holds the CUDA kernel against the plain version on the card."""
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import repro.configs as JCFG
+from repro.kernels.flash_attention import flash_attention_pallas
+from repro.models import layers as JL
+import repro_torch.configs as TCFG
+from repro_torch.kernels import flash_attention as tfa
+from repro_torch.kernels import ops as tops
+from repro_torch.models import layers as TL
+
+from _torch_parity import assert_bits_equal, np_of
+
+F32_TOL = dict(rtol=2e-4, atol=2e-5)      # tests/test_kernels.py, float32
+BF16_TOL = dict(rtol=3e-2, atol=3e-2)     # tests/test_kernels.py, bfloat16
+# two implementations that compute in float32 and round the same result to
+# bf16 differ by that rounding: one bf16 ulp is 2^-8 to 2^-7 of |want|
+KERNEL_BF16_TOL = dict(rtol=1.6e-2, atol=4e-3)
+
+
+def _normal(rng, shape, scale=1.0):
+    return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+
+def _both(a, dtype="float32"):
+    """One numpy array as a jnp and a torch array of ``dtype`` (bf16 is
+    rounded to nearest even on both sides)."""
+    j, t = jnp.asarray(a), torch.from_numpy(np.ascontiguousarray(a))
+    if dtype == "bfloat16":
+        return j.astype(jnp.bfloat16), t.to(torch.bfloat16)
+    return j, t
+
+
+def _f32(x):
+    return np.asarray(np_of(x.float()) if isinstance(x, torch.Tensor)
+                      else np.asarray(x, np.float32))
+
+
+def _qkv(B, Sq, Sk, H, KV, hd, seed=0, dtype="float32"):
+    rng = np.random.default_rng(seed)
+    return [_both(_normal(rng, s), dtype)
+            for s in ((B, Sq, H, hd), (B, Sk, KV, hd), (B, Sk, KV, hd))]
+
+
+# ---------------------------------------------------------------------------
+# the kernel's plain version against the Pallas kernel (interpret mode)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,hd,qb,kb", [
+    (1, 128, 128, 4, 2, 64, 128, 128),
+    (2, 256, 256, 4, 4, 32, 128, 128),
+    (1, 200, 200, 2, 1, 64, 128, 128),   # ragged seq vs block
+    (2, 64, 64, 8, 2, 128, 64, 64),
+    (1, 384, 384, 4, 2, 64, 128, 256),   # asymmetric blocks
+])
+def test_flash_causal_matches_pallas(B, Sq, Sk, H, KV, hd, qb, kb):
+    """The tile sizes vary the Pallas kernel only: the port's tiles are
+    its own, and ``ops.flash_attention`` refuses any other."""
+    (jq, tq), (jk, tk), (jv, tv) = _qkv(B, Sq, Sk, H, KV, hd)
+    want = flash_attention_pallas(jq, jk, jv, causal=True, q_block=qb,
+                                  kv_block=kb)
+    got = tops.flash_attention(tq, tk, tv, causal=True)
+    np.testing.assert_allclose(np_of(got), np.asarray(want), **F32_TOL)
+
+
+@pytest.mark.parametrize("tiles", [{"q_block": 64}, {"kv_block": 256}])
+def test_flash_refuses_tpu_tile_sizes(tiles):
+    (_, tq), (_, tk), (_, tv) = _qkv(1, 64, 64, 2, 1, 32)
+    with pytest.raises(ValueError, match="selects nothing"):
+        tops.flash_attention(tq, tk, tv, **tiles)
+    tops.flash_attention(tq, tk, tv, q_block=128, kv_block=128)
+
+
+@pytest.mark.parametrize("window", [32, 128])
+def test_flash_sliding_window_matches_pallas(window):
+    (jq, tq), (jk, tk), (jv, tv) = _qkv(1, 256, 256, 4, 2, 64, seed=1)
+    want = flash_attention_pallas(jq, jk, jv, causal=True, window=window)
+    got = tops.flash_attention(tq, tk, tv, causal=True, window=window)
+    np.testing.assert_allclose(np_of(got), np.asarray(want), **F32_TOL)
+
+
+def test_flash_bfloat16_matches_pallas():
+    """Both compute in float32 and round the result to bf16, so they are
+    held at a few bf16 ulps (KERNEL_BF16_TOL), tighter than the
+    reference's 3e-2."""
+    (jq, tq), (jk, tk), (jv, tv) = _qkv(1, 128, 128, 4, 2, 64, seed=2,
+                                        dtype="bfloat16")
+    want = flash_attention_pallas(jq, jk, jv)
+    got = tops.flash_attention(tq, tk, tv)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(_f32(got), _f32(want), **KERNEL_BF16_TOL)
+
+
+def _attention_keeping(q, k, v, keep):
+    """Float32 GQA attention over the (Sq, Sk) pairs ``keep`` marks."""
+    B, Sq, H, hd = q.shape
+    KV = k.shape[2]
+    qg = q.float().reshape(B, Sq, KV, H // KV, hd)
+    logits = torch.einsum("bqkgh,bskh->bkgqs", qg, k.float()) / hd ** 0.5
+    w = torch.softmax(logits.masked_fill(~keep, -1e9), dim=-1)
+    out = torch.einsum("bkgqs,bskh->bqkgh", w, v.float())
+    return out.reshape(q.shape).to(q.dtype)
+
+
+@pytest.mark.parametrize("fault", ["late_tile_skipped", "normalizer_off"])
+def test_bf16_kernel_limit_fails_planted_faults(fault):
+    """KERNEL_BF16_TOL is not vacuous: outputs a wrong causal kernel
+    would give (a late 64-key tile skipped by every query past it; a
+    normalizer 3% off) fail it, while the plain version passes."""
+    (_, q), (_, k), (_, v) = _qkv(1, 512, 512, 4, 2, 64, seed=5,
+                                  dtype="bfloat16")
+    want = tfa.flash_attention_plain(q, k, v)
+    if fault == "late_tile_skipped":
+        pos = torch.arange(512)
+        keep = pos[None, :] <= pos[:, None]
+        keep[320:, 256:320] = False
+        bad = _attention_keeping(q, k, v, keep)
+    else:
+        bad = (want.float() * 1.03).to(torch.bfloat16)
+    np.testing.assert_allclose(
+        _f32(_attention_keeping(q, k, v, torch.ones(512, 512).tril().bool())),
+        _f32(want), **KERNEL_BF16_TOL)
+    with pytest.raises(AssertionError):
+        np.testing.assert_allclose(_f32(bad), _f32(want), **KERNEL_BF16_TOL)
+
+
+def test_flash_non_causal_ragged_matches_pallas():
+    """Sq != Sk, non-causal."""
+    (jq, tq), (jk, tk), (jv, tv) = _qkv(1, 128, 192, 2, 2, 64, seed=3)
+    want = flash_attention_pallas(jq, jk, jv, causal=False)
+    got = tops.flash_attention(tq, tk, tv, causal=False)
+    np.testing.assert_allclose(np_of(got), np.asarray(want), **F32_TOL)
+
+
+def test_flash_routes_cpu_and_meta_to_plain():
+    """CPU and shape-only meta tensors take the plain version: no launch.
+    A head dim the CUDA kernel refuses is still served on the CPU."""
+    before = tfa.LAUNCHES["flash_attention"]
+    q = torch.zeros((1, 7, 4, 96), device="meta")
+    kv = torch.zeros((1, 9, 2, 96), device="meta")
+    out = tfa.flash_attention(q, kv, kv, causal=False)
+    assert out.shape == (1, 7, 4, 96) and out.device.type == "meta"
+    (_, tq), (_, tk), (_, tv) = _qkv(1, 5, 5, 2, 1, 96, seed=4)
+    assert tfa.flash_attention(tq, tk, tv).shape == (1, 5, 2, 96)
+    assert tfa.LAUNCHES["flash_attention"] == before
+
+
+def test_flash_rejects_bad_shapes():
+    q = torch.zeros((1, 4, 3, 32))
+    kv = torch.zeros((1, 4, 2, 32))
+    with pytest.raises(ValueError, match="multiple"):
+        tfa.flash_attention(q, kv, kv)
+    with pytest.raises(ValueError):
+        tfa.flash_attention(q[..., :16], kv, kv)
+
+
+# ---------------------------------------------------------------------------
+# layers
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def cfgs():
+    """The reduced phi3 config of both packages (2 layers, d 128, H 4,
+    KV 2, hd 32, f32)."""
+    return (JCFG.get("phi3-medium-14b").reduced(),
+            TCFG.get("phi3-medium-14b").reduced())
+
+
+def _attn_params(cfg, rng, dtype="float32"):
+    d, hd = cfg.d_model, cfg.hd
+    shapes = {"wq": (d, cfg.n_heads * hd), "wk": (d, cfg.n_kv_heads * hd),
+              "wv": (d, cfg.n_kv_heads * hd), "wo": (cfg.n_heads * hd, d)}
+    pairs = {k: _both(_normal(rng, s, d ** -0.5), dtype)
+             for k, s in shapes.items()}
+    return ({k: p[0] for k, p in pairs.items()},
+            {k: p[1] for k, p in pairs.items()})
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rmsnorm_matches(dtype):
+    rng = np.random.default_rng(5)
+    jx, tx = _both(_normal(rng, (2, 9, 64), 3.0), dtype)
+    js, ts = _both(_normal(rng, (64,)), dtype)
+    got = TL.rmsnorm({"scale": ts}, tx)
+    want = JL.rmsnorm({"scale": js}, jx)
+    assert got.dtype == tx.dtype
+    tol = F32_TOL if dtype == "float32" else BF16_TOL
+    np.testing.assert_allclose(_f32(got), _f32(want), **tol)
+
+
+def test_rope_interleaved_matches():
+    rng = np.random.default_rng(6)
+    jx, tx = _both(_normal(rng, (2, 11, 3, 32)))
+    pos = np.arange(11)[None] + 5
+    got = TL.rope(tx, torch.from_numpy(pos), 1e4)
+    want = JL.rope(jx, jnp.asarray(pos), 1e4)
+    np.testing.assert_allclose(np_of(got), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_gqa_core_matches():
+    rng = np.random.default_rng(7)
+    (jq, tq), (jk, tk), (jv, tv) = [
+        _both(_normal(rng, s)) for s in ((2, 6, 4, 32), (2, 10, 2, 32),
+                                         (2, 10, 2, 32))]
+    mask = np.tril(np.ones((6, 10), bool), 4)
+    valid = np.arange(10) < 8
+    got = TL.gqa_core(tq, tk, tv, mask=torch.from_numpy(mask),
+                      kv_valid=torch.from_numpy(valid))
+    want = JL.gqa_core(jq, jk, jv, mask=jnp.asarray(mask),
+                       kv_valid=jnp.asarray(valid))
+    np.testing.assert_allclose(np_of(got), np.asarray(want), **F32_TOL)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_kv_quantize_bit_exact(dtype):
+    """Codes equal, scales bit-equal (half-to-even rounding on both)."""
+    rng = np.random.default_rng(8)
+    x = _normal(rng, (2, 16, 2, 32), 2.0)
+    x[0, 3, 1] = 0.0                                  # an all-zero row
+    x[1, 2, 0, :5] = [0.5, -0.5, 1.5, 2.5, 127.0]     # .5 ties at scale 1
+    jx, tx = _both(x, dtype)
+    tq, ts = TL.kv_quantize(tx)
+    jq, js = JL.kv_quantize(jx)
+    assert_bits_equal(tq, np.asarray(jq))
+    assert ts.dtype == torch.bfloat16
+    assert_bits_equal(ts.view(torch.int16), np.asarray(js).view(np.int16))
+    np.testing.assert_array_equal(
+        _f32(TL.kv_dequantize(tq, ts, torch.float32)),
+        np.asarray(JL.kv_dequantize(jq, js, jnp.float32)))
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16_cache",
+                                                     "int8_cache"])
+def test_decode_attention_matches(cfgs, int8):
+    """One decode step over a partly filled bf16 ring-buffer cache (and
+    over int8 codes + bf16 scales): the slot written at pos % S, the
+    output, and the untouched slots."""
+    jcfg, tcfg = cfgs
+    if int8:
+        jcfg = dataclasses.replace(jcfg, kv_dtype="int8")
+        tcfg = dataclasses.replace(tcfg, kv_dtype="int8")
+    rng = np.random.default_rng(9)
+    jp, tp = _attn_params(tcfg, rng, "bfloat16")
+    B, S, KV, hd, pos = 2, 12, tcfg.n_kv_heads, tcfg.hd, 7
+    jx, tx = _both(_normal(rng, (B, 1, tcfg.d_model)), "bfloat16")
+    k, v = (_normal(rng, (B, S, KV, hd)) for _ in range(2))
+    if int8:
+        jcache, tcache = {}, {}
+        for name, arr in (("k", k), ("v", v)):
+            jc, js = JL.kv_quantize(jnp.asarray(arr).astype(jnp.bfloat16))
+            jcache[name], jcache[name + "_scale"] = jc, js
+            tcache[name] = torch.from_numpy(np.array(jc))
+            tcache[name + "_scale"] = torch.from_numpy(
+                np.array(js).view(np.int16)).view(torch.bfloat16)
+    else:
+        jcache = {"k": _both(k, "bfloat16")[0], "v": _both(v, "bfloat16")[0]}
+        tcache = {"k": _both(k, "bfloat16")[1], "v": _both(v, "bfloat16")[1]}
+    want, jnew = JL.decode_attention(jp, jcfg, jx, jcache,
+                                     jnp.asarray(pos, jnp.int32))
+    got, tnew = TL.decode_attention(tp, tcfg, tx, tcache, pos)
+    np.testing.assert_allclose(_f32(got), _f32(want), **BF16_TOL)
+    for name in jnew:
+        t, j = tnew[name], np.asarray(jnew[name])
+        if t.dtype == torch.bfloat16:
+            # the untouched slots cross bit for bit; the new slot's K/V
+            # come out of two bf16 projections and a rope
+            keep = np.arange(S) != pos
+            assert_bits_equal(t.view(torch.int16)[:, keep],
+                              j.view(np.int16)[:, keep])
+            np.testing.assert_allclose(_f32(t[:, pos]), _f32(j[:, pos]),
+                                       **BF16_TOL)
+        else:
+            np.testing.assert_array_equal(np_of(t)[:, np.arange(S) != pos],
+                                          j[:, np.arange(S) != pos])
+            assert np.abs(np_of(t)[:, pos].astype(int)
+                          - j[:, pos].astype(int)).max() <= 1
+
+
+@pytest.mark.parametrize("cross", [False, True], ids=["self", "cross"])
+def test_full_seq_attention_matches(cfgs, cross):
+    """Projection + rope + attention: the port's flash kernel (plain on the
+    CPU) against the reference's blocked_attention, in float32; causal
+    self-attention, and non-causal attention over a longer kv_x."""
+    jcfg, tcfg = cfgs
+    rng = np.random.default_rng(10)
+    jp, tp = _attn_params(tcfg, rng)
+    jx, tx = _both(_normal(rng, (2, 37, tcfg.d_model)))
+    jkv, tkv = _both(_normal(rng, (2, 53, tcfg.d_model))) if cross \
+        else (None, None)
+    got = TL.full_seq_attention(tp, tcfg, tx, causal=not cross, kv_x=tkv)
+    want = JL.full_seq_attention(jp, jcfg, jx, causal=not cross, kv_x=jkv)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(np_of(g), np.asarray(w), **F32_TOL)
+
+
+@pytest.mark.parametrize("window", [0, 5])
+def test_gqa_attention_with_scores_mask_matches(cfgs, window):
+    """The general (materialized) attention with a causal / windowed
+    mask from gqa_scores_mask."""
+    jcfg, tcfg = cfgs
+    rng = np.random.default_rng(11)
+    jp, tp = _attn_params(tcfg, rng)
+    jx, tx = _both(_normal(rng, (2, 19, tcfg.d_model)))
+    pos = np.arange(19)
+    tmask = TL.gqa_scores_mask(torch.from_numpy(pos), torch.from_numpy(pos),
+                               window=window)
+    jmask = JL.gqa_scores_mask(jnp.asarray(pos), jnp.asarray(pos),
+                               window=window)
+    np.testing.assert_array_equal(np_of(tmask), np.asarray(jmask))
+    got = TL.gqa_attention(tp, tcfg, tx, mask=tmask)
+    want = JL.gqa_attention(jp, jcfg, jx, mask=jmask)
+    np.testing.assert_allclose(np_of(got), np.asarray(want), **F32_TOL)

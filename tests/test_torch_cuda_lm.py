@@ -1,0 +1,111 @@
+"""The port's flash-attention and RWKV6 kernels against their plain
+PyTorch versions, on the card. Every test here is marked ``cuda`` and
+skips without a CUDA device; the module imports no JAX, so it also runs
+on a machine without it:
+
+    python -m pytest -q -m cuda tests/test_torch_cuda_lm.py
+
+Tolerances: float32 at the reference's attention tolerance (2e-4 / 2e-5,
+``tests/test_kernels.py``); bfloat16 outputs within a few bf16 ulps
+(rtol 1.6e-2, atol 4e-3): both sides compute in float32 and round the
+result to bf16, the sums in another order, and one bf16 ulp is 2^-8 to
+2^-7 of the value; the WKV6 state at 1e-4.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import flash_attention as tfa
+from repro_torch.kernels import rwkv_scan as trs
+
+pytestmark = pytest.mark.cuda
+
+F32_TOL = dict(rtol=2e-4, atol=2e-5)
+BF16_TOL = dict(rtol=1.6e-2, atol=4e-3)
+
+
+def _cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the GPU machine)")
+    return torch.device("cuda")
+
+
+def _normal(shape, seed, dtype, dev):
+    x = np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
+    return torch.from_numpy(x).to(dev, dtype)
+
+
+def _close(got, want, dtype):
+    tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,causal,window", [
+    (2, 200, 200, 4, 2, True, 0),       # ragged against the 64-row tile
+    (1, 256, 256, 8, 2, True, 48),      # sliding window
+    (2, 77, 130, 4, 4, False, 0),       # non-causal, Sq != Sk
+    (1, 130, 77, 6, 2, True, 0),        # causal, Sq > Sk
+])
+def test_flash_matches_plain(B, Sq, Sk, H, KV, causal, window, hd, dtype):
+    dev = _cuda()
+    q = _normal((B, Sq, H, hd), 0, dtype, dev)
+    k = _normal((B, Sk, KV, hd), 1, dtype, dev)
+    v = _normal((B, Sk, KV, hd), 2, dtype, dev)
+    got = tfa.flash_attention(q, k, v, causal=causal, window=window)
+    want = tfa.flash_attention_plain(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == q.shape
+    _close(got, want, dtype)
+
+
+def test_flash_reads_strided_inputs():
+    """q, k, v as views of one fused projection (strided along heads and
+    sequence), as a packed qkv layout would give them."""
+    dev = _cuda()
+    B, S, H, KV, hd = 2, 96, 4, 2, 64
+    qkv = _normal((B, S, H + 2 * KV, hd), 3, torch.bfloat16, dev)
+    q, k, v = qkv[:, :, :H], qkv[:, :, H:H + KV], qkv[:, :, H + KV:]
+    got = tfa.flash_attention(q, k, v)
+    want = tfa.flash_attention_plain(q, k, v)
+    _close(got, want, torch.bfloat16)
+
+
+def test_flash_refuses_unsupported_head_dim():
+    dev = _cuda()
+    q = torch.zeros((1, 8, 2, 96), device=dev)
+    with pytest.raises(ValueError, match="hd"):
+        tfa.flash_attention(q, q[:, :, :1], q[:, :, :1])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("hd", [32, 64, 128])
+def test_rwkv_matches_plain(hd, dtype):
+    """S = 203 is no multiple of any step chunk (64, 32 or 16 steps)."""
+    dev = _cuda()
+    B, S, H = 2, 203, 3
+    r, k, v = (_normal((B, S, H, hd), s, dtype, dev) for s in range(3))
+    w = torch.sigmoid(_normal((B, S, H, hd), 3, torch.float32, dev)).to(dtype)
+    u = _normal((H, hd), 4, torch.float32, dev) * 0.1
+    y, st = trs.rwkv_scan(r, k, v, w, u)
+    y_want, st_want = trs.rwkv_scan_plain(r, k, v, w, u)
+    torch.cuda.synchronize()
+    assert y.dtype == dtype and st.dtype == torch.float32
+    _close(y, y_want, dtype)
+    torch.testing.assert_close(st, st_want, rtol=1e-4, atol=1e-4)
+
+
+def test_launch_counters_move():
+    dev = _cuda()
+    x = _normal((1, 64, 2, 64), 0, torch.bfloat16, dev)
+    fa_before = tfa.LAUNCHES["flash_attention"]
+    rs_before = trs.LAUNCHES["rwkv_scan"]
+    tfa.flash_attention(x, x, x)
+    trs.rwkv_scan(x, x, x, torch.sigmoid(x), x[0, 0])
+    tfa.flash_attention_plain(x, x, x)
+    trs.rwkv_scan_plain(x, x, x, torch.sigmoid(x), x[0, 0])
+    assert tfa.LAUNCHES["flash_attention"] == fa_before + 1
+    assert trs.LAUNCHES["rwkv_scan"] == rs_before + 1
