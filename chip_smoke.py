@@ -146,6 +146,29 @@ def bound(nbytes: float, ops: float, ops_per_s: float):
                                    else "operations")
 
 
+def ptxas_report(report: str, entry: str, smem_bytes: int) -> dict:
+    """ptxas' report of the entry functions whose mangled name holds
+    ``entry`` (the largest over them): registers, spill and stack bytes,
+    static shared memory, whether ptxas serialized their wgmmas (C7512),
+    and ``smem_bytes``, the dynamic shared memory a launch asks for."""
+    regs = spill_st = spill_ld = stack = smem = 0
+    for block in report.split("Compiling entry function '")[1:]:
+        if entry not in block.split("'", 1)[0]:
+            continue
+        num = lambda pat: max(map(int, re.findall(pat, block)), default=0)
+        regs = max(regs, num(r"Used (\d+) registers"))
+        spill_st = max(spill_st, num(r"(\d+) bytes spill stores"))
+        spill_ld = max(spill_ld, num(r"(\d+) bytes spill loads"))
+        stack = max(stack, num(r"(\d+) bytes stack frame"))
+        smem = max(smem, num(r"(\d+) bytes smem"))
+    serialized = any("C7512" in line and entry in line
+                     for line in report.splitlines())
+    return {"registers": regs, "spill_store_bytes": spill_st,
+            "spill_load_bytes": spill_ld, "stack_bytes": stack,
+            "static_smem_bytes": smem, "dynamic_smem_bytes": smem_bytes,
+            "wgmma_serialized": serialized}
+
+
 def max_abs_err(a, b) -> float:
     import torch
     return float((a.to(torch.float64) - b.to(torch.float64)).abs().max())
@@ -566,6 +589,7 @@ def lm_kernel_checks():
     flash["bound_ms"], flash["bound_by"] = bound(
         nbytes, 4 * hd * pairs * B * H, BF16_OPS_PER_S)
     flash["ms"] = time_ms(lambda: fa.flash_attention(q, k, v), 10)
+    flash["tflops"] = 4 * hd * pairs * B * H / (flash["ms"] * 1e-3) / 1e12
     flash["plain_ms"] = time_ms(lambda: fa.flash_attention_plain(q, k, v),
                                 2, 1)
     # the library yardstick: one PyTorch call on the same inputs, K/V
@@ -897,6 +921,10 @@ def main() -> int:
     _free()
 
     lm_phase, lm_kernels = lm_kernel_checks()
+    # the bf16 kernel at the path's head dim (hd 128)
+    lm_kernels["flash_attention"]["ptxas"] = ptxas_report(
+        build.BUILD_INFO.get(fa.SOURCE.name, ""), "fa_hopper_kernelILi128E",
+        fa._lib().fa_smem_bytes(128))
     emit(dict(lm_phase, card=card))
     _free()
     for aid, counter, key, int8_tokens in (

@@ -4,36 +4,77 @@
 // body _kernel): out = softmax(q k^T / sqrt(hd) + mask) v for q
 // (B, Sq, H, hd) and k, v (B, Sk, KV, hd), query head h reading KV head
 // h / (H / KV); the masks are built from positions, as the TPU kernel
-// builds them: key j < Sk, causal j <= i, window j > i - window. Inputs
-// are float32 or bfloat16; every product and sum runs in float32 and the
-// output is written in the input type.
-//
-// Design. One block per (query tile of 64 rows, head, batch); the TPU
-// kernel's sequential KV grid axis becomes a loop inside the block, so the
-// running max m, sum l and the float32 accumulator never leave the chip
-// (registers). Per KV tile of 64 keys the block stages K and V in shared
-// memory (as float32), forms the 64 x 64 scores, updates the online
-// softmax, stages P in shared memory (over K's tile, which is no longer
-// read) and adds P V. 256 threads as 16 x 16: thread (ty, tx) owns query
-// rows 4 ty .. 4 ty + 3, score columns tx + 16 j (j < 4) and accumulator
-// columns tx + 16 c (c < hd / 16). Rows of Q and K are padded by 4 floats,
-// so the float4 reads along hd of 8 consecutive rows fall in distinct
-// banks. KV tiles that the causal or window mask empties for every row of
-// the query tile are skipped; inside a live tile masked scores are -1e30,
-// as in the TPU kernel, and the first tile with a valid key clears what a
-// masked one left (corr = exp(m_prev - m_new) = 0). The query tiles are
-// walked longest-first so that the causal blocks with most tiles start
-// first. The kernel reads q, k and v through their (batch, sequence,
-// head) strides: no copy of K/V per query head, no transpose.
+// builds them: key j < Sk, causal j <= i, window j > i - window. Masked
+// scores are a large finite negative, as in the TPU kernel, so a tile in
+// which a row has no valid key adds exp(0) terms that the first tile with a
+// valid key clears (corr = exp(m_prev - m_new) = 0). The softmax is online
+// and in float32; the output is written in the input type. hd is 32, 64 or
+// 128. Both paths read q, k and v through their (batch, sequence, head)
+// strides: no copy of K/V per query head, no transpose, no padding.
 //
 // Bound on the H100: the operations. At the serving path's shape (bf16,
 // B 4, S 2048, H 40, KV 10, hd 128, causal) the valid (query, key) pairs
 // need 4 B H hd S (S + 1) / 2 = 1.72e11 FLOP, 0.174 ms at the bf16
 // tensor-core rate of 989 TFLOP/s, against 84 MB of bytes (0.025 ms at
-// 3.35 TB/s). This kernel computes on the float32 SIMT pipes (67 TFLOP/s
-// at most, 2.6 ms for those FLOP) and is far from the bound; moving the
-// two products to wgmma in bf16 is the next step.
+// 3.35 TB/s). Only the tensor cores, kept fed and kept busy while the
+// softmax runs, come near that; the softmax itself (one ex2 per score on
+// 16 lanes per SM) would take half the products' time if it ran alone.
+//
+// bfloat16: a persistent, warp-specialised wgmma kernel fed by TMA
+// (namespace hopper).
+//   * Work: one item per (128-row query tile, head, batch), the query tiles
+//     longest first, so the causal items with most KV tiles start first.
+//     One block per SM walks items j, j + gridDim.x, ...; the K/V ring and
+//     the barriers' phases run on across items, and Q has its own
+//     full/empty pair, so the next item's Q and first K/V tiles load while
+//     this item finishes.
+//   * Warps: three warpgroups. The producer gives up registers (setmaxnreg
+//     24) and one of its threads issues every TMA load. The two consumers
+//     take them (setmaxnreg 240) and own 64 query rows each.
+//   * TMA: one tensor map each for q, k and v, rank 4 over (hd, S, heads,
+//     B) with the tensors' own strides, built on the host with
+//     cuTensorMapEncodeTiled (reached through cudaGetDriverEntryPoint, so
+//     no -lcuda). A box is 128 rows of 64 bf16 (one 128-byte swizzle row;
+//     hd 128 takes two boxes per tile) or, at hd 32, of 32 bf16 with the
+//     64-byte swizzle. Rows past Sq or Sk come in as zeros (out-of-bounds
+//     fill), so the ragged edges need no padding copy. K and V come in a
+//     ring of two stages of 128-key tiles, with full and empty barriers for
+//     K and for V apart: K of a stage is released once S has read it, V
+//     once P V has. At hd 128 that is 32 KB of Q and 2 x 64 KB of K/V, one
+//     block per SM.
+//   * S = Q K^T: per tile, hd / 16 wgmma m64n128k16 (bf16 in, float32
+//     accumulator in registers), A = Q and B = K both K-major from shared
+//     memory as they lie.
+//   * O += P V: P is rounded to bf16 in registers (as SDPA does), and the
+//     m64n128 accumulator fragment is the A-register fragment of the next
+//     wgmma (m64n{hd}k16, 8 per tile); B = V from shared memory, MN-major
+//     through the descriptor's transpose bit, so V is never transposed.
+//   * Overlap: a consumer issues tile i's S together with tile i - 1's
+//     P V, then runs tile i's softmax while P V runs. The two consumers
+//     take turns to issue (named barriers: ping-pong), so one's softmax
+//     overlaps the other's products.
+//   * Softmax in registers: the mask only on the tiles that need it (the
+//     diagonal, the window's edge, the ragged last tile), against limits
+//     relative to the thread's first column; tiles that every row of an
+//     item masks are never loaded; row max over the accumulator layout and
+//     a quad shuffle; p = 2^(s c - m c) in one FFMA and one ex2; the row
+//     sum kept per thread and reduced once per item.
+//   * Epilogue: O / l from registers, bf16 stores of rows below Sq.
+//
+// float32: the SIMT kernel (flash_fwd_kernel), kept for the float32
+// checks (2e-4 / 2e-5), which TF32 tensor cores could not meet. One block
+// per (query tile of 64 rows, head, batch); per KV tile of 64 keys the
+// block stages K and V in shared memory, forms the 64 x 64 scores, updates
+// the online softmax, stages P in shared memory (over K's tile) and adds
+// P V, all on the float32 pipes (67 TFLOP/s at most), with m, l and the
+// accumulator in registers. 256 threads as 16 x 16: thread (ty, tx) owns
+// query rows 4 ty .. 4 ty + 3, score columns tx + 16 j (j < 4) and
+// accumulator columns tx + 16 c (c < hd / 16). Rows of Q and K are padded
+// by 4 floats, so the float4 reads along hd of 8 consecutive rows fall in
+// distinct banks. KV tiles that the masks empty for every row of the
+// query tile are skipped.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -42,6 +83,10 @@
 
 namespace {
 
+// ---------------------------------------------------------------------------
+// float32: the SIMT kernel
+// ---------------------------------------------------------------------------
+
 constexpr int kBQ = 64;          // query rows per block
 constexpr int kBK = 64;          // keys per tile
 constexpr int kThreads = 256;    // 16 x 16
@@ -49,18 +94,11 @@ constexpr float kNegInf = -1e30f;
 constexpr double kLog2e = 1.4426950408889634;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
 template <>
 __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
 
 // Stage rows row0 .. row0 + ROWS of one head of a (B, S, heads, HD) tensor
 // in shared memory as float32, row-major with a row stride of LD floats;
@@ -298,14 +336,707 @@ cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v,
   }
 }
 
+// ---------------------------------------------------------------------------
+// bfloat16: warp-specialised wgmma + TMA
+// ---------------------------------------------------------------------------
+
+namespace hopper {
+
+constexpr int kRows = 128;       // query rows per work item, keys per tile
+constexpr int kConsumers = 2;    // warpgroups of 64 query rows
+constexpr int kThreads = 128 * (kConsumers + 1);
+constexpr int kStages = 2;       // K/V ring
+constexpr int kProducerRegs = 24;
+constexpr int kConsumerRegs = 240;
+// a masked score: finite, like the TPU kernel's -1e30, and a power of two
+// (-2^100), so that scaling it is exact
+constexpr float kMasked = -1.2676506002282294e30f;
+
+template <int HD>
+struct Tile {
+  static constexpr int kBox = HD < 64 ? HD : 64;   // bf16 per swizzle row
+  static constexpr int kBoxes = HD / kBox;         // boxes per tile
+  static constexpr int kRowBytes = 2 * kBox;       // 128 or 64
+  static constexpr int kBoxBytes = kRows * kRowBytes;
+  static constexpr int kBytes = kBoxes * kBoxBytes;  // one Q, K or V tile
+  // wgmma descriptor swizzle mode: 1 = 128-byte, 2 = 64-byte
+  static constexpr uint64_t kSwizzle = kRowBytes == 128 ? 1 : 2;
+  static constexpr uint32_t kSbo = 8 * kRowBytes;   // the next 8 rows
+};
+
+// Q, the K stages, the V stages, their barriers, and room to align the
+// tiles to 1024 bytes (the 128-byte swizzle's period)
+template <int HD>
+constexpr int kSmemBytes = 1024 + (1 + 2 * kStages) * Tile<HD>::kBytes + 128;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// one box of a rank-4 tensor map at (c0, c1, c2, c3) into shared memory;
+// its bytes count against the barrier's expected transaction bytes
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1, int c2,
+                                         int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "r"(bar)
+      : "memory");
+}
+
+// wgmma shared-memory matrix descriptor: start address, leading and stride
+// byte offsets (16-byte units), swizzle mode
+template <int HD>
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (Tile<HD>::kSwizzle << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// until at most N committed groups are in flight
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// keeps the compiler from moving reads or writes of accumulator registers
+// across the asynchronous wgmma that owns them
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// D (64 x N, float32, registers) (+)= A (64 x 16) B (16 x N), bf16.
+// _ss: A and B K-major in shared memory; scale_d 0 overwrites D.
+// _rs: A from registers, B MN-major (transposed) in shared memory.
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
+                                               uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16], const uint32_t (&a)[4],
+                                               uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
+                                               uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4],
+                                               uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <int HD>
+__device__ __forceinline__ void wgmma_pv(float (&o)[HD / 2],
+                                         const uint32_t (&a)[4], uint64_t db) {
+  if constexpr (HD == 32) {
+    wgmma_rs_n32(o, a, db);
+  } else if constexpr (HD == 64) {
+    wgmma_rs_n64(o, a, db);
+  } else {
+    wgmma_rs_n128(o, a, db);
+  }
+}
+
+// S = Q K^T for one warpgroup's 64 rows and a 128-key tile, both K-major;
+// the k-th 16 of hd sit in box 16 k / kBox
+template <int HD>
+__device__ __forceinline__ void issue_s(float (&sc)[64], uint32_t q_wg,
+                                        uint32_t k_st) {
+  using T = Tile<HD>;
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    const uint32_t off =
+        (kk * 16 / T::kBox) * T::kBoxBytes + (kk * 16 % T::kBox) * 2;
+    wgmma_ss_n128(sc, smem_desc<HD>(q_wg + off, 16, T::kSbo),
+                  smem_desc<HD>(k_st + off, 16, T::kSbo), kk);
+  }
+}
+
+// O += P V, V MN-major: the kk-th 16 keys are 16 rows of the tile, the
+// boxes along hd T::kBoxBytes apart
+template <int HD>
+__device__ __forceinline__ void issue_pv(float (&o)[HD / 2],
+                                         const uint32_t (&pa)[8][4],
+                                         uint32_t v_st) {
+  using T = Tile<HD>;
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk)
+    wgmma_pv<HD>(o, pa[kk],
+                 smem_desc<HD>(v_st + kk * 16 * T::kRowBytes, T::kBoxBytes,
+                               T::kSbo));
+}
+
+// The running softmax state of a thread's two rows.
+struct Rows {
+  float m0, m1;        // running max of the unscaled scores
+  float l0, l1;        // this thread's share of the running sums
+  float c0, c1;        // the last tile's rescaling of the earlier terms
+};
+
+// One tile's scores become P (float32, in sc): p = 2^(s scale_log2 -
+// m scale_log2) with scale_log2 = log2(e) / sqrt(hd), one FFMA and one ex2
+// per score; m is kept unscaled. The mask is applied only where some (row,
+// key) pair of the warpgroup fails it, against limits relative to this
+// thread's first column, so the 64 column offsets stay immediates. row /
+// col: the accumulator layout's first row and column of this thread.
+__device__ __forceinline__ void softmax_tile(float (&sc)[64], Rows& r,
+                                             bool masked, int k0, int row,
+                                             int col, int Sk, int causal,
+                                             int window, float scale_log2) {
+  if (masked) {
+    const int first = k0 + col;                // key of this thread's column 0
+    const int n_keys = Sk - first;             // columns c < n_keys exist
+    const int last0 = row - first;             // causal: c <= last
+    const int last1 = last0 + 8;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = 8 * j + (e & 1);
+        const int last = (e >> 1) ? last1 : last0;
+        bool ok = c < n_keys;
+        if (causal) ok = ok && c <= last;
+        if (window) ok = ok && c > last - window;
+        if (!ok) sc[4 * j + e] = kMasked;
+      }
+    }
+  }
+  float mx0 = kMasked, mx1 = kMasked;
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    mx0 = fmaxf(mx0, fmaxf(sc[4 * j], sc[4 * j + 1]));
+    mx1 = fmaxf(mx1, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
+  }
+  // a row's 128 scores lie on the 4 lanes of a quad
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+  }
+  const float n0 = fmaxf(r.m0, mx0), n1 = fmaxf(r.m1, mx1);
+  // kMasked scales exactly (a power of two), so a row that has seen only
+  // masked scores gets 2^0 = 1 terms, which its first valid score clears
+  const float s0 = n0 * scale_log2, s1 = n1 * scale_log2;
+  r.c0 = ex2(fmaf(r.m0, scale_log2, -s0));
+  r.c1 = ex2(fmaf(r.m1, scale_log2, -s1));
+  r.m0 = n0;
+  r.m1 = n1;
+  float sum0 = 0.0f, sum1 = 0.0f;
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    sc[4 * j] = ex2(fmaf(sc[4 * j], scale_log2, -s0));
+    sc[4 * j + 1] = ex2(fmaf(sc[4 * j + 1], scale_log2, -s0));
+    sc[4 * j + 2] = ex2(fmaf(sc[4 * j + 2], scale_log2, -s1));
+    sc[4 * j + 3] = ex2(fmaf(sc[4 * j + 3], scale_log2, -s1));
+    sum0 += sc[4 * j] + sc[4 * j + 1];
+    sum1 += sc[4 * j + 2] + sc[4 * j + 3];
+  }
+  r.l0 = r.l0 * r.c0 + sum0;
+  r.l1 = r.l1 * r.c1 + sum1;
+}
+
+template <int N>
+__device__ __forceinline__ void rescale(float (&o)[N], const Rows& r) {
+#pragma unroll
+  for (int j = 0; j < N / 4; ++j) {
+    o[4 * j] *= r.c0;
+    o[4 * j + 1] *= r.c0;
+    o[4 * j + 2] *= r.c1;
+    o[4 * j + 3] *= r.c1;
+  }
+}
+
+// P in bf16: the accumulator's 8-column blocks 2 kk and 2 kk + 1 are the
+// A-register fragment of the kk-th 16 keys
+__device__ __forceinline__ void pack_p(uint32_t (&pa)[8][4],
+                                       const float (&sc)[64]) {
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+    pa[kk][0] = pack_bf16(sc[8 * kk], sc[8 * kk + 1]);
+    pa[kk][1] = pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
+    pa[kk][2] = pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
+    pa[kk][3] = pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
+  }
+}
+
+__device__ __forceinline__ void fence_pa(uint32_t (&pa)[8][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(pa[kk][i])::"memory");
+}
+
+// named barriers 1 and 2: consumer w may issue its wgmmas after the other
+// consumer's arrival on barrier 1 + w
+__device__ __forceinline__ void bar_sync(int id) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id) {
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
+}
+
+// One unit of work: a 128-row query tile of one (head, batch), and the
+// KV tiles some row of it needs.
+struct Work {
+  int q0, h, b, t_begin, n_tiles;
+};
+
+// Work item w: the query tiles longest first (w / (H B) counts the tile
+// index down), then the heads, then the batch.
+__device__ __forceinline__ Work work_of(int w, int n_q, int H, int n_b,
+                                        int Sk, int causal, int window) {
+  Work u;
+  const int hb = w % (H * n_b);
+  u.q0 = (n_q - 1 - w / (H * n_b)) * kRows;
+  u.h = hb % H;
+  u.b = hb / H;
+  const int k_end = causal ? min(Sk, u.q0 + kRows) : Sk;
+  const int k_begin = window ? max(0, u.q0 - window + 1) : 0;
+  u.t_begin = k_begin / kRows;
+  u.n_tiles = max(0, (k_end + kRows - 1) / kRows - u.t_begin);
+  return u;
+}
+
+// Persistent: block j takes work items j, j + gridDim.x, ... The K/V ring
+// runs on across items (g counts the KV tiles of this block so far), and Q
+// has its own full/empty barrier pair, so the producer loads the next
+// item's Q and first K/V tiles while the consumers finish this one.
+template <int HD>
+__global__ void __launch_bounds__(kThreads, 1)
+fa_hopper_kernel(const __grid_constant__ CUtensorMap tm_q,
+                 const __grid_constant__ CUtensorMap tm_k,
+                 const __grid_constant__ CUtensorMap tm_v,
+                 __nv_bfloat16* __restrict__ out, Strides os, int Sq, int Sk,
+                 int H, int n_b, int group, int causal, int window,
+                 float scale_log2) {
+  using T = Tile<HD>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  // Q; K of stage s at k_smem + s T::kBytes, V likewise; then the 8-byte
+  // barriers q_full, q_empty, k_full[s], v_full[s], k_empty[s], v_empty[s]
+  const uint32_t q_smem = base;
+  const uint32_t k_smem = q_smem + T::kBytes;
+  const uint32_t v_smem = k_smem + kStages * T::kBytes;
+  const uint32_t q_full = v_smem + kStages * T::kBytes;
+  const uint32_t q_empty = q_full + 8;
+  const uint32_t k_full = q_empty + 8;
+  const uint32_t v_full = k_full + 8 * kStages;
+  const uint32_t k_empty = v_full + 8 * kStages;
+  const uint32_t v_empty = k_empty + 8 * kStages;
+  const int n_q = (Sq + kRows - 1) / kRows;
+  const int n_work = n_q * H * n_b;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    mbar_init(q_empty, kConsumers);
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(k_full + 8 * s, 1);
+      mbar_init(v_full + 8 * s, 1);
+      mbar_init(k_empty + 8 * s, kConsumers);
+      mbar_init(v_empty + 8 * s, kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == kConsumers) {
+    // producer: one thread issues every load, K of tile i + 1 before V of
+    // tile i, so that S of the next tile can start while P V runs
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (threadIdx.x == kConsumers * 128) {
+      int g = 0, item = 0;
+      for (int w = blockIdx.x; w < n_work; w += gridDim.x, ++item) {
+        const Work u = work_of(w, n_q, H, n_b, Sk, causal, window);
+        const int kvh = u.h / group;
+        mbar_wait(q_empty, (item & 1) ^ 1);
+        mbar_expect_tx(q_full, T::kBytes);
+#pragma unroll
+        for (int c = 0; c < T::kBoxes; ++c)
+          tma_load(q_smem + c * T::kBoxBytes, &tm_q, q_full, c * T::kBox,
+                   u.q0, u.h, u.b);
+        for (int i = 0; i <= u.n_tiles; ++i) {
+          if (i < u.n_tiles) {                   // K of tile i
+            const int s = (g + i) % kStages;
+            mbar_wait(k_empty + 8 * s, (((g + i) / kStages) & 1) ^ 1);
+            mbar_expect_tx(k_full + 8 * s, T::kBytes);
+#pragma unroll
+            for (int c = 0; c < T::kBoxes; ++c)
+              tma_load(k_smem + s * T::kBytes + c * T::kBoxBytes, &tm_k,
+                       k_full + 8 * s, c * T::kBox, (u.t_begin + i) * kRows,
+                       kvh, u.b);
+          }
+          if (i > 0) {                           // V of tile i - 1
+            const int s = (g + i - 1) % kStages;
+            mbar_wait(v_empty + 8 * s, (((g + i - 1) / kStages) & 1) ^ 1);
+            mbar_expect_tx(v_full + 8 * s, T::kBytes);
+#pragma unroll
+            for (int c = 0; c < T::kBoxes; ++c)
+              tma_load(v_smem + s * T::kBytes + c * T::kBoxBytes, &tm_v,
+                       v_full + 8 * s, c * T::kBox,
+                       (u.t_begin + i - 1) * kRows, kvh, u.b);
+          }
+        }
+        g += u.n_tiles;
+      }
+    }
+  } else {
+    // consumer: 64 query rows of each work item. Tile i's S = Q K^T is
+    // issued together with tile i - 1's O += P V; the softmax of tile i
+    // runs while P V does.
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
+    // accumulator layout: this thread holds rows `row` and row + 8, columns
+    // 8 j + col and 8 j + col + 1 of each 8-column block j
+    const int col = 2 * (lane % 4);
+    const uint32_t q_wg = q_smem + 64 * wg * T::kRowBytes;
+    // Ping-pong: the two consumers take turns to issue their wgmmas
+    // (named barriers 1 and 2), so that one's softmax overlaps the other's
+    // products; n_tiles + 1 turns per item, consumer 0 first, and the
+    // last turn of the block hands over to no one
+    int turns = 0;
+    for (int w = blockIdx.x; w < n_work; w += gridDim.x) {
+      const int n = work_of(w, n_q, H, n_b, Sk, causal, window).n_tiles;
+      turns += n ? n + 1 : 0;
+    }
+    if (wg == 1 && turns > 0) bar_arrive(1);
+    auto turn_begin = [&]() { bar_sync(1 + wg); };
+    auto turn_end = [&]() {
+      if (--turns > 0 || wg == 0) bar_arrive(2 - wg);
+    };
+    float o[HD / 2], sc[64];
+    uint32_t pa[8][4];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) sc[i] = 0.0f;
+    int g = 0, item = 0;
+    for (int w = blockIdx.x; w < n_work; w += gridDim.x, ++item) {
+      const Work u = work_of(w, n_q, H, n_b, Sk, causal, window);
+      const int n = u.n_tiles;
+      const int qmin = u.q0 + 64 * wg;           // this warpgroup's rows
+      const int row = qmin + 16 * warp + lane / 4;
+      // the tiles where some pair of this warpgroup is masked
+      auto masked = [&](int k0) {
+        return k0 + kRows > Sk || (causal && k0 + kRows - 1 > qmin) ||
+               (window && k0 <= qmin + 63 - window);
+      };
+#pragma unroll
+      for (int i = 0; i < HD / 2; ++i) o[i] = 0.0f;
+      Rows r{kMasked, kMasked, 0.0f, 0.0f, 1.0f, 1.0f};
+
+      mbar_wait(q_full, item & 1);
+      if (n == 0) {
+        if (t == 0) mbar_arrive(q_empty);
+      } else {
+        // tile 0: S only
+        const int s0 = g % kStages;
+        mbar_wait(k_full + 8 * s0, (g / kStages) & 1);
+        turn_begin();
+        wgmma_fence();
+        issue_s<HD>(sc, q_wg, k_smem + s0 * T::kBytes);
+        wgmma_commit();
+        turn_end();
+        wgmma_wait<0>();
+        fence_regs(sc);
+        if (t == 0) {
+          mbar_arrive(k_empty + 8 * s0);
+          if (n == 1) mbar_arrive(q_empty);
+        }
+        softmax_tile(sc, r, masked(u.t_begin * kRows), u.t_begin * kRows,
+                     row, col, Sk, causal, window, scale_log2);
+        pack_p(pa, sc);
+        for (int i = 1; i < n; ++i) {
+          const int gi = g + i;
+          const int s = gi % kStages, sp = (gi - 1) % kStages;
+          const int k0 = (u.t_begin + i) * kRows;
+          mbar_wait(k_full + 8 * s, (gi / kStages) & 1);
+          mbar_wait(v_full + 8 * sp, ((gi - 1) / kStages) & 1);
+          turn_begin();
+          wgmma_fence();
+          issue_s<HD>(sc, q_wg, k_smem + s * T::kBytes);
+          wgmma_commit();
+          issue_pv<HD>(o, pa, v_smem + sp * T::kBytes);
+          wgmma_commit();
+          turn_end();
+          wgmma_wait<1>();                       // S of tile i
+          fence_regs(sc);
+          if (t == 0) {
+            mbar_arrive(k_empty + 8 * s);
+            if (i == n - 1) mbar_arrive(q_empty);
+          }
+          softmax_tile(sc, r, masked(k0), k0, row, col, Sk, causal, window,
+                       scale_log2);
+          wgmma_wait<0>();                       // P V of tile i - 1
+          fence_regs(o);
+          fence_pa(pa);
+          if (t == 0) mbar_arrive(v_empty + 8 * sp);
+          rescale(o, r);
+          pack_p(pa, sc);
+        }
+        const int gl = g + n - 1, sl = gl % kStages;
+        mbar_wait(v_full + 8 * sl, (gl / kStages) & 1);
+        turn_begin();
+        wgmma_fence();
+        issue_pv<HD>(o, pa, v_smem + sl * T::kBytes);
+        wgmma_commit();
+        turn_end();
+        wgmma_wait<0>();
+        fence_regs(o);
+        fence_pa(pa);
+        if (t == 0) mbar_arrive(v_empty + 8 * sl);
+      }
+      g += n;
+
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        r.l0 += __shfl_xor_sync(0xffffffffu, r.l0, off);
+        r.l1 += __shfl_xor_sync(0xffffffffu, r.l1, off);
+      }
+      const float i0 = 1.0f / fmaxf(r.l0, 1e-30f);
+      const float i1 = 1.0f / fmaxf(r.l1, 1e-30f);
+      __nv_bfloat16* ob = out + u.b * os.b + u.h * os.h + col;
+#pragma unroll
+      for (int j = 0; j < HD / 8; ++j) {
+        if (row < Sq)
+          *reinterpret_cast<__nv_bfloat162*>(
+              ob + static_cast<long long>(row) * os.s + 8 * j) =
+              __floats2bfloat162_rn(o[4 * j] * i0, o[4 * j + 1] * i0);
+        if (row + 8 < Sq)
+          *reinterpret_cast<__nv_bfloat162*>(
+              ob + static_cast<long long>(row + 8) * os.s + 8 * j) =
+              __floats2bfloat162_rn(o[4 * j + 2] * i1, o[4 * j + 3] * i1);
+      }
+    }
+  }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, from the driver through the runtime (no -lcuda)
+cudaError_t encoder(EncodeTiled* fn) {
+  static EncodeTiled cached = nullptr;
+  if (cached == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess) return err;
+    if (found != cudaDriverEntryPointSuccess || p == nullptr)
+      return cudaErrorNotSupported;
+    cached = reinterpret_cast<EncodeTiled>(p);
+  }
+  *fn = cached;
+  return cudaSuccess;
+}
+
+// A rank-4 map over (hd, S, heads, B) of a bf16 (B, S, heads, hd) tensor
+// with element strides st; boxes of 128 rows of one swizzle row each.
+// Returns 0 or kEncodeError + the CUresult.
+constexpr int kEncodeError = 10000;
+
+template <int HD>
+int make_map(CUtensorMap* map, EncodeTiled encode, const void* ptr, int S,
+             int heads, int B, Strides st) {
+  using T = Tile<HD>;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(HD),
+                              static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(st.s) * 2,
+                                 static_cast<cuuint64_t>(st.h) * 2,
+                                 static_cast<cuuint64_t>(st.b) * 2};
+  const cuuint32_t box[4] = {T::kBox, kRows, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      T::kRowBytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                          : CU_TENSOR_MAP_SWIZZLE_64B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kEncodeError + static_cast<int>(r);
+}
+
+template <int HD>
+int launch(const void* q, const void* k, const void* v, void* out,
+           Strides qs, Strides ks, Strides vs, Strides os, int B, int Sq,
+           int Sk, int H, int KV, int causal, int window, float scale_log2,
+           cudaStream_t stream) {
+  EncodeTiled encode;
+  cudaError_t err = encoder(&encode);
+  if (err != cudaSuccess) return err;
+  CUtensorMap tq, tk, tv;
+  // a map needs extents >= 1; with Sk == 0 no tile is loaded
+  int rc = make_map<HD>(&tq, encode, q, Sq, H, B, qs);
+  if (rc == 0) rc = make_map<HD>(&tk, encode, k, max(Sk, 1), KV, B, ks);
+  if (rc == 0) rc = make_map<HD>(&tv, encode, v, max(Sk, 1), KV, B, vs);
+  if (rc != 0) return rc;
+  // persistent: one block per SM, or fewer when there is less work
+  int device = 0, n_sm = 0;
+  err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount,
+                                 device);
+  if (err != cudaSuccess) return err;
+  const int n_work = (Sq + kRows - 1) / kRows * H * B;
+  const int grid = min(n_work, n_sm);
+  auto kernel = fa_hopper_kernel<HD>;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kSmemBytes<HD>);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, kThreads, kSmemBytes<HD>, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(out), os, Sq, Sk, H, B,
+      H / KV, causal, window, scale_log2);
+  return cudaGetLastError();
+}
+
+int dispatch_hd(int hd, const void* q, const void* k, const void* v,
+                void* out, Strides qs, Strides ks, Strides vs, Strides os,
+                int B, int Sq, int Sk, int H, int KV, int causal, int window,
+                float scale_log2, cudaStream_t stream) {
+  switch (hd) {
+    case 32:
+      return launch<32>(q, k, v, out, qs, ks, vs, os, B, Sq, Sk, H, KV,
+                        causal, window, scale_log2, stream);
+    case 64:
+      return launch<64>(q, k, v, out, qs, ks, vs, os, B, Sq, Sk, H, KV,
+                        causal, window, scale_log2, stream);
+    case 128:
+      return launch<128>(q, k, v, out, qs, ks, vs, os, B, Sq, Sk, H, KV,
+                         causal, window, scale_log2, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace hopper
+
 }  // namespace
 
 extern "C" {
 
 // q (B, Sq, H, hd), k and v (B, Sk, KV, hd), out (B, Sq, H, hd), all of one
-// type (dtype 0: float32, 1: bfloat16), hd contiguous; *_sb, *_ss, *_sh are
-// the batch, sequence and head strides in elements. Returns 0 or the
-// cudaError_t of the launch. Nothing here synchronises or allocates.
+// type (dtype 0: float32, the SIMT kernel; 1: bfloat16, the wgmma kernel),
+// hd contiguous; *_sb, *_ss, *_sh are the batch, sequence and head strides
+// in elements (bf16: multiples of 8, addresses 16-byte aligned, as TMA
+// needs). Returns 0, the cudaError_t of the launch, or 10000 + the CUresult
+// of a failed tensor-map encoding. Nothing here synchronises or allocates.
 int fa_forward(const void* q, const void* k, const void* v, void* out,
                int dtype, int B, int Sq, int Sk, int H, int KV, int hd,
                long long q_sb, long long q_ss, long long q_sh,
@@ -315,7 +1046,8 @@ int fa_forward(const void* q, const void* k, const void* v, void* out,
                int causal, int window, int device, void* stream) {
   if (B < 0 || Sq < 0 || Sk < 0 || H <= 0 || KV <= 0 || H % KV != 0 ||
       window < 0 || (dtype != 0 && dtype != 1) ||
-      (hd != 32 && hd != 64 && hd != 128) || H > 65535 || B > 65535)
+      (hd != 32 && hd != 64 && hd != 128) || H > 65535 || B > 65535 ||
+      static_cast<long long>((Sq + 127) / 128) * H * B > 0x7fffffff)
     return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
@@ -325,13 +1057,27 @@ int fa_forward(const void* q, const void* k, const void* v, void* out,
   const float scale_log2 =
       static_cast<float>(kLog2e / std::sqrt(static_cast<double>(hd)));
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  err = dtype == 0
-            ? dispatch_hd<float>(hd, q, k, v, out, qs, ks, vs, os, B, Sq, Sk,
-                                 H, H / KV, causal, window, scale_log2, s)
-            : dispatch_hd<__nv_bfloat16>(hd, q, k, v, out, qs, ks, vs, os, B,
-                                         Sq, Sk, H, H / KV, causal, window,
-                                         scale_log2, s);
-  return static_cast<int>(err);
+  if (dtype == 0)
+    return static_cast<int>(dispatch_hd<float>(hd, q, k, v, out, qs, ks, vs,
+                                               os, B, Sq, Sk, H, H / KV,
+                                               causal, window, scale_log2, s));
+  return hopper::dispatch_hd(hd, q, k, v, out, qs, ks, vs, os, B, Sq, Sk, H,
+                             KV, causal, window, scale_log2, s);
+}
+
+// The dynamic shared memory a bfloat16 launch of fa_forward asks for, or
+// -1 for a head dim it does not take.
+int fa_smem_bytes(int hd) {
+  switch (hd) {
+    case 32:
+      return hopper::kSmemBytes<32>;
+    case 64:
+      return hopper::kSmemBytes<64>;
+    case 128:
+      return hopper::kSmemBytes<128>;
+    default:
+      return -1;
+  }
 }
 
 }  // extern "C"

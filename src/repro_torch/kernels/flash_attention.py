@@ -1,5 +1,5 @@
-"""GQA flash attention (forward): a CUDA kernel for Hopper, its plain
-PyTorch version beside it.
+"""GQA flash attention (forward): CUDA kernels for Hopper, their plain
+PyTorch version beside them.
 
 Replaces ``flash_attention_pallas`` (``repro/kernels/flash_attention.py``):
 ``q (B, Sq, H, hd)``, ``k, v (B, Sk, KV, hd)`` -> ``(B, Sq, H, hd)`` in
@@ -7,16 +7,27 @@ Replaces ``flash_attention_pallas`` (``repro/kernels/flash_attention.py``):
 built from positions, ragged ``Sq`` and ``Sk``.
 
 On the H100 the operations bound it (4 hd flop per valid query-key pair
-per head, at the bf16 tensor-core rate); the kernel in
-``csrc/flash_attention.cu`` is a float32 SIMT kernel, one block per
-64-row query tile looping over 64-key tiles with m, l and the accumulator
-on chip, skipping tiles the masks empty, and reading K/V of the shared KV
-head through its strides (no copy per query head). It takes hd 32, 64 and
-128, float32 and bfloat16. Its source header says what bounds it and
-what the design does about that.
+per head, at the bf16 tensor-core rate). ``csrc/flash_attention.cu`` holds
+two kernels behind one C entry point, both for hd 32, 64 and 128, both
+reading K/V of the shared KV head through the tensors' strides:
+
+- **bfloat16** (the serving path): a persistent, warp-specialised kernel.
+  A producer warpgroup brings Q, K and V by TMA (tensor maps over the
+  tensors' own strides, zero fill past the ragged edges) into a two-stage
+  ring behind mbarriers; two consumer warpgroups of 64 query rows run both
+  products on the tensor cores (``wgmma``, bf16 in, float32 accumulators),
+  P rounded to bf16 in registers as the A operand of P V, and overlap
+  each tile's softmax with the products (their own next-tile S and the
+  other warpgroup's wgmmas, taken in turns).
+- **float32**: a SIMT kernel (64-row query tiles over 64-key tiles, m, l
+  and the accumulator in registers), kept for the float32 checks at
+  2e-4 / 2e-5, which TF32 tensor cores could not meet.
+
+Both skip KV tiles the masks empty for a whole query tile. The source
+header says what bounds each and what the design does about that.
 
 ``flash_attention`` takes the plain version for CPU (and shape-only
-``meta``) tensors, launches the kernel for CUDA tensors, and raises for
+``meta``) tensors, launches a kernel for CUDA tensors, and raises for
 anything else; a CUDA tensor never falls back. ``LAUNCHES`` counts the
 kernel's launches; only a launch adds to it.
 """
@@ -32,6 +43,8 @@ from . import ref
 SOURCE = B.CSRC / "flash_attention.cu"
 NVCC_FLAGS = B.BASE_FLAGS
 HEAD_DIMS = (32, 64, 128)
+# fa_forward returns this plus the CUresult when a tensor map is refused
+ENCODE_ERROR = 10000
 
 LAUNCHES = {"flash_attention": 0}
 
@@ -49,7 +62,8 @@ def _lib():
         _LIB = B.load(SOURCE, NVCC_FLAGS, {
             "fa_forward": [P, P, P, P, I, I, I, I, I, I, I,
                            LL, LL, LL, LL, LL, LL, LL, LL, LL, LL, LL, LL,
-                           I, I, I, P]})
+                           I, I, I, P],
+            "fa_smem_bytes": [I]})
     return _LIB
 
 
@@ -79,7 +93,8 @@ def _check_kernel_args(q, k, v) -> None:
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"the CUDA kernel takes float32 or bfloat16, got "
                         f"{q.dtype}")
-    vec = 16 // q.element_size()          # the kernel's 16-byte loads
+    # 16-byte loads (float32) and TMA (bf16): 16-byte aligned rows
+    vec = 16 // q.element_size()
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.dtype != q.dtype:
             raise TypeError(f"{name} is {t.dtype}, q is {q.dtype}")
@@ -110,6 +125,9 @@ def flash_attention(q, k, v, causal: bool = True, window: int = 0):
         int(q.dtype == torch.bfloat16), Bq, Sq, Sk, H, KV, hd,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
         int(causal), int(window), q.device.index or 0, B.stream_of(q))
+    if rc >= ENCODE_ERROR:
+        raise RuntimeError(f"flash attention: cuTensorMapEncodeTiled failed "
+                           f"with CUresult {rc - ENCODE_ERROR}")
     B.check(rc, "flash attention")
     LAUNCHES["flash_attention"] += 1
     return out

@@ -7,9 +7,12 @@ float32 tolerances (2e-4 / 2e-5) and, in bfloat16, a few bf16 ulps
 (both sides round one float32 result), tighter than its 3e-2. The layers of
 ``models/layers.py`` (rmsnorm, rope, gqa_core, the int8 KV quantizer,
 decode attention over a bf16 and an int8 ring-buffer cache, full-sequence
-attention) are held against ``repro.models.layers``. Inputs come from a
-numpy seed and go through both packages. ``tests/test_torch_cuda_lm.py``
-holds the CUDA kernel against the plain version on the card."""
+attention) are held against ``repro.models.layers``. An emulation of the
+bf16 CUDA kernel's order of work (128-key tiles, P rounded to bf16 before
+P V) is held against the Pallas kernel at the kernel's bf16 limit.
+Inputs come from a numpy seed and go through both packages.
+``tests/test_torch_cuda_lm.py`` holds the CUDA kernels against the plain
+version on the card."""
 import dataclasses
 
 import jax.numpy as jnp
@@ -104,6 +107,63 @@ def test_flash_bfloat16_matches_pallas():
     want = flash_attention_pallas(jq, jk, jv)
     got = tops.flash_attention(tq, tk, tv)
     assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(_f32(got), _f32(want), **KERNEL_BF16_TOL)
+
+
+def _hopper_kernel_order(q, k, v, causal, window):
+    """The bf16 CUDA kernel's order of work, emulated in float32 on the
+    CPU: scores of the bf16 inputs in base 2 (times log2(e) / sqrt(hd)),
+    masked to -1e30, taken over 128-key tiles in order with the online max
+    and sum in float32; each tile's P rounded to bf16 before P V, the
+    accumulator rescaled by exp2(m_prev - m_new); O / max(l, 1e-30) rounded
+    to bf16. Rows are independent, so the kernel's 128-row query tiles and
+    its skipping of tiles that mask every row of one do not change this."""
+    B, Sq, H, hd = q.shape
+    Sk, G = k.shape[1], H // k.shape[2]
+    qf = q.float().transpose(1, 2)                           # (B, H, Sq, hd)
+    kf = k.float().repeat_interleave(G, dim=2).transpose(1, 2)
+    vf = v.float().repeat_interleave(G, dim=2).transpose(1, 2)
+    scale = float(np.float32(np.log2(np.e) / np.sqrt(hd)))
+    neg = torch.tensor(-1e30)
+    m = torch.full((B, H, Sq, 1), -1e30)
+    l = torch.zeros((B, H, Sq, 1))
+    o = torch.zeros((B, H, Sq, hd))
+    qpos = torch.arange(Sq)[:, None]
+    for k0 in range(0, Sk, 128):
+        kpos = torch.arange(k0, min(k0 + 128, Sk))[None, :]
+        s = (qf @ kf[:, :, k0:k0 + 128].transpose(-1, -2)) * scale
+        ok = torch.ones(Sq, kpos.shape[1], dtype=torch.bool)
+        if causal:
+            ok &= kpos <= qpos
+        if window:
+            ok &= kpos > qpos - window
+        s = torch.where(ok, s, neg)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        corr = torch.exp2(m - m_new)
+        p = torch.exp2(s - m_new)
+        l = l * corr + p.sum(-1, keepdim=True)
+        pb = p.to(torch.bfloat16).float()
+        o = o * corr + pb @ vf[:, :, k0:k0 + 128]
+        m = m_new
+    out = o / torch.clamp(l, min=1e-30)
+    return out.transpose(1, 2).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,hd,causal,window", [
+    (1, 512, 512, 8, 2, 64, True, 0),      # causal, GQA 4
+    (2, 200, 328, 4, 4, 128, False, 0),    # non-causal, ragged Sq and Sk
+    (1, 384, 384, 8, 1, 32, True, 200),    # window ending inside a tile
+])
+def test_hopper_kernel_arithmetic_within_bf16_limit(B, Sq, Sk, H, KV, hd,
+                                                    causal, window):
+    """The bf16 kernel rounds P to bf16 before P V (as SDPA does); the
+    Pallas kernel keeps P in float32. Emulated here in the kernel's order
+    of work, that rounding stays inside KERNEL_BF16_TOL against the Pallas
+    kernel (interpret mode) on bf16 inputs."""
+    (jq, tq), (jk, tk), (jv, tv) = _qkv(B, Sq, Sk, H, KV, hd, seed=6,
+                                        dtype="bfloat16")
+    want = flash_attention_pallas(jq, jk, jv, causal=causal, window=window)
+    got = _hopper_kernel_order(tq, tk, tv, causal, window)
     np.testing.assert_allclose(_f32(got), _f32(want), **KERNEL_BF16_TOL)
 
 

@@ -48,6 +48,13 @@ def _close(got, want, dtype):
     (1, 256, 256, 8, 2, True, 48),      # sliding window
     (2, 77, 130, 4, 4, False, 0),       # non-causal, Sq != Sk
     (1, 130, 77, 6, 2, True, 0),        # causal, Sq > Sk
+    # the bf16 kernel's 128-row / 128-key tiles: one row short, exact and
+    # one row over, GQA groups 1, 4 and 8
+    (1, 127, 129, 4, 4, False, 0),
+    (2, 128, 128, 8, 2, True, 0),
+    (1, 129, 127, 8, 1, True, 0),       # causal, Sq > Sk
+    (1, 2048, 2048, 8, 2, True, 0),
+    (1, 300, 300, 8, 1, True, 200),     # the window ends inside a tile
 ])
 def test_flash_matches_plain(B, Sq, Sk, H, KV, causal, window, hd, dtype):
     dev = _cuda()
@@ -63,7 +70,8 @@ def test_flash_matches_plain(B, Sq, Sk, H, KV, causal, window, hd, dtype):
 
 def test_flash_reads_strided_inputs():
     """q, k, v as views of one fused projection (strided along heads and
-    sequence), as a packed qkv layout would give them."""
+    sequence), as a packed qkv layout would give them: the bf16 kernel's
+    tensor maps carry those strides."""
     dev = _cuda()
     B, S, H, KV, hd = 2, 96, 4, 2, 64
     qkv = _normal((B, S, H + 2 * KV, hd), 3, torch.bfloat16, dev)
