@@ -19,7 +19,8 @@ entry points at full width and checks what comes out:
    int8 KV cache) and of rwkv6-3b (32 layers, bf16, the WKV6 kernel in
    every prefill layer), random weights from a seed, batch 4, 2048-token
    prompts; plus a decode-consistency check of each on a full-width
-   two-layer float32 build.
+   two-layer float32 build; and before them the default serve command
+   (``--preset smoke``, reduced float32 configs) of each arch.
 
 Each phase prints one JSON line; the last line is ``{"ok": true,
 "device": {...}}``. Any failed check raises and the script exits
@@ -537,6 +538,30 @@ def planted_attention_faults(q, k, v, want):
     return records
 
 
+def planted_scan_faults(r, k, v, w, u, y_want, st_want):
+    """Outputs that a wrong WKV6 kernel would give at the path's shape,
+    held against the plain version's with the unchanged limits, which must
+    fail each of them: the u bonus dropped, and the decay of one step (the
+    middle one) skipped. Returns a record per fault."""
+    import torch
+    from repro_torch.kernels import rwkv_scan as rs
+    w_skip = w.clone()
+    w_skip[:, w.shape[1] // 2] = 1.0
+    faults = {"u bonus dropped": (r, k, v, w, torch.zeros_like(u)),
+              "one step's decay skipped": (r, k, v, w_skip, u)}
+    records = []
+    for fault, args in faults.items():
+        y, st = rs.rwkv_scan_plain(*args)
+        ratio_y = worst_ratio(y, y_want, RWKV_TOL["y"])
+        ratio_st = worst_ratio(st, st_want, RWKV_TOL["state"])
+        require(ratio_y > 1.0, f"the bf16 limit passes a planted scan fault "
+                f"({fault}): {ratio_y} x the tolerance")
+        records.append({"fault": fault, "max_abs_err_y": max_abs_err(y, y_want),
+                        "worst_ratio_y": ratio_y,
+                        "worst_ratio_state": ratio_st})
+    return records
+
+
 def lm_kernel_checks():
     """Flash attention at phi3's prefill shape (bf16, B 4, S 2048, H 40,
     KV 10, hd 128, causal), a sliding-window and a ragged non-causal
@@ -632,7 +657,10 @@ def lm_kernel_checks():
     checks.append({"case": "rwkv6 prefill", "shape": [B, S, H, hd],
                    "dtype": "torch.bfloat16", "max_abs_err_y": err_y,
                    "max_abs_err_state": err_st, "worst_ratio_y": ratio_y,
-                   "worst_ratio_state": ratio_st, "tol": RWKV_TOL})
+                   "worst_ratio_state": ratio_st, "tol": RWKV_TOL,
+                   "planted_faults": planted_scan_faults(
+                       r, kk, vv, w, u, y_want, st_want)})
+    del y_want, st_want
     n = r.numel()
     scan = {"name": "rwkv_scan", "route": "cuda",
             "source": LM_SOURCES["rwkv_scan"],
@@ -649,8 +677,13 @@ def lm_kernel_checks():
     scan["ms"] = time_ms(lambda: rs.rwkv_scan(r, kk, vv, w, u), 10)
     scan["plain_ms"] = time_ms(lambda: rs.rwkv_scan_plain(r, kk, vv, w, u),
                                2, 1)
+    # batch row 0 alone: its H blocks get an SM each, so this is one
+    # block's time, against the card's in scan["ms"]
+    ms_one = time_ms(lambda: rs.rwkv_scan(r[:1], kk[:1], vv[:1], w[:1], u),
+                     10)
     return ({"phase": "lm_kernels_vs_plain", "checks": checks,
              "rwkv_scan_us_per_step": scan["ms"] * 1e3 / S,
+             "rwkv_scan_ms_batch_1": ms_one,
              "times_ms": {e["name"]: {f: e[f] for f in (
                  "ms", "plain_ms", "bound_ms", "library_ms")}
                  for e in (flash, scan)}},
@@ -674,6 +707,39 @@ def _check_served(cfg, toks, info, new_tokens) -> None:
     require(bool(((toks >= 0) & (toks < cfg.vocab)).all()),
             f"{cfg.name}: a generated id outside [0, vocab)")
     require(info["logits_finite"], f"{cfg.name}: a logit is not finite")
+
+
+def serve_smoke_presets():
+    """The port's default serve command, ``python -m
+    repro_torch.launch.serve --arch A`` (``--preset smoke``: the reduced
+    float32 config, two layers; rwkv6's head dim 16, phi3's 32), for every
+    ported arch, through ``launch/serve.py:main`` on the card: ids in
+    [0, vocab), finite logits, one kernel launch per layer in the one
+    prefill (counts set to 0 just before, read just after)."""
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rwkv_scan as rs
+    from repro_torch.launch import serve
+
+    out = {"phase": "serve_smoke_preset", "archs": {}}
+    for aid, counter, key in (("phi3-medium-14b", fa.LAUNCHES,
+                               "flash_attention"),
+                              ("rwkv6-3b", rs.LAUNCHES, "rwkv_scan")):
+        cfg = configs.get(aid).reduced()
+        counter[key] = 0
+        toks, info = serve.main(["--arch", aid, "--device", "cuda"])
+        require(bool(((toks >= 0) & (toks < cfg.vocab)).all()),
+                f"{aid} smoke: a generated id outside [0, vocab)")
+        require(info["logits_finite"], f"{aid} smoke: a logit is not finite")
+        require(counter[key] == cfg.n_layers,
+                f"{aid} smoke: {counter[key]} {key} launches in one prefill, "
+                f"want {cfg.n_layers}")
+        out["archs"][aid] = {"hd": cfg.rwkv_head_dim if cfg.family == "ssm"
+                             else cfg.hd, "dtype": cfg.dtype,
+                             "launches": counter[key],
+                             "ids_seq0": toks[0].tolist(),
+                             "prefill_seconds": info["prefill_seconds"]}
+    return out
 
 
 def decode_consistency(cfg, recurrent: bool):
@@ -925,8 +991,13 @@ def main() -> int:
     lm_kernels["flash_attention"]["ptxas"] = ptxas_report(
         build.BUILD_INFO.get(fa.SOURCE.name, ""), "fa_hopper_kernelILi128E",
         fa._lib().fa_smem_bytes(128))
+    # the scan at the path's shape (bf16, hd 64)
+    lm_kernels["rwkv_scan"]["ptxas"] = ptxas_report(
+        build.BUILD_INFO.get(rs.SOURCE.name, ""),
+        "wkv6_kernelI13__nv_bfloat16Li64E", rs._lib().wkv6_smem_bytes(1, 64))
     emit(dict(lm_phase, card=card))
     _free()
+    emit(dict(serve_smoke_presets(), card=card))
     for aid, counter, key, int8_tokens in (
             ("phi3-medium-14b", fa.LAUNCHES, "flash_attention",
              NEW_TOKENS_INT8),

@@ -10,13 +10,19 @@ float32.
 
 On the H100 the float32 operations bound it (5 flop per state element and
 step, the rank-one u bonus aside; the bytes take about two thirds as
-long), and a serial recurrence
-reaches neither bound: the time is the steps times one step's dependent
-chain. The kernel in ``csrc/rwkv_scan.cu`` keeps the state in registers,
-4 threads per state column (hd / 4 rows each), walks time inside the
-kernel with chunks of r, k, w and v staged in shared memory, and adds the
-four parts of each output with two shuffles. It takes hd 32, 64 and 128,
-float32 and bfloat16.
+long). The kernel in ``csrc/rwkv_scan.cu`` applies the recurrence step by
+step, so it keeps the instructions per state element and step low: each
+thread holds a register tile of the state (at hd 64, 16 consecutive rows
+x 2 columns) for the whole sequence, reads its rows of r, k, w as
+16-byte shared loads, and spends 3 FP32 instructions per element and
+step; the u bonus is rank one (``p_t v_c`` with
+``p_t = sum_k r_k u_k k_k``, formed once per step); each thread leaves its
+part of y in shared memory, summed over the row groups once per chunk.
+Chunks of 2048 / hd steps are brought into shared memory with ``cp.async``
+while the previous chunk is computed, and widened from bf16 to f32 once.
+It takes hd 16, 32, 64 and 128, float32 and bfloat16, with 16-byte aligned
+inputs. What bounds it now is one block's chain of steps and the SMs that
+hold two blocks (``PERF.md``).
 
 ``rwkv_scan`` takes the plain version for CPU (and shape-only ``meta``)
 tensors, launches the kernel for CUDA tensors, and raises for anything
@@ -34,7 +40,7 @@ from . import ref
 
 SOURCE = B.CSRC / "rwkv_scan.cu"
 NVCC_FLAGS = B.BASE_FLAGS
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128)
 
 LAUNCHES = {"rwkv_scan": 0}
 
@@ -45,12 +51,15 @@ def reset_launches() -> None:
     LAUNCHES["rwkv_scan"] = 0
 
 
+_P, _I = ctypes.c_void_p, ctypes.c_int
+SIGNATURES = {"wkv6_forward": [_P] * 7 + [_I] * 6 + [_P],
+              "wkv6_smem_bytes": [_I, _I]}
+
+
 def _lib():
     global _LIB
     if _LIB is None:
-        P, I = ctypes.c_void_p, ctypes.c_int
-        _LIB = B.load(SOURCE, NVCC_FLAGS, {
-            "wkv6_forward": [P, P, P, P, P, P, P, I, I, I, I, I, I, P]})
+        _LIB = B.load(SOURCE, NVCC_FLAGS, SIGNATURES)
     return _LIB
 
 
@@ -83,6 +92,8 @@ def _check_kernel_args(r, k, v, w) -> None:
             raise ValueError(f"{name} is on {t.device}, r on {r.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary")
 
 
 def rwkv_scan(r, k, v, w, u):

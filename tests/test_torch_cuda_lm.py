@@ -88,15 +88,10 @@ def test_flash_refuses_unsupported_head_dim():
         tfa.flash_attention(q, q[:, :, :1], q[:, :, :1])
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
-                         ids=["f32", "bf16"])
-@pytest.mark.parametrize("hd", [32, 64, 128])
-def test_rwkv_matches_plain(hd, dtype):
-    """S = 203 is no multiple of any step chunk (64, 32 or 16 steps)."""
+def _check_rwkv(B, S, H, hd, dtype, w):
     dev = _cuda()
-    B, S, H = 2, 203, 3
     r, k, v = (_normal((B, S, H, hd), s, dtype, dev) for s in range(3))
-    w = torch.sigmoid(_normal((B, S, H, hd), 3, torch.float32, dev)).to(dtype)
+    w = w(_normal((B, S, H, hd), 3, torch.float32, dev)).to(dtype)
     u = _normal((H, hd), 4, torch.float32, dev) * 0.1
     y, st = trs.rwkv_scan(r, k, v, w, u)
     y_want, st_want = trs.rwkv_scan_plain(r, k, v, w, u)
@@ -104,6 +99,39 @@ def test_rwkv_matches_plain(hd, dtype):
     assert y.dtype == dtype and st.dtype == torch.float32
     _close(y, y_want, dtype)
     torch.testing.assert_close(st, st_want, rtol=1e-4, atol=1e-4)
+
+
+# sequence lengths against the kernel's chunk of 2048 / hd steps
+_STEPS = {"1": lambda c: 1, "chunk-1": lambda c: c - 1, "chunk": lambda c: c,
+          "chunk+1": lambda c: c + 1, "203": lambda c: 203}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+@pytest.mark.parametrize("S", list(_STEPS))
+def test_rwkv_matches_plain(S, hd, dtype):
+    """The kernel stages chunks of 2048 / hd steps: one step, a chunk one
+    step short, exact and one step over, and S = 203, no multiple of any
+    chunk (128, 64, 32 or 16 steps)."""
+    _check_rwkv(2, _STEPS[S](2048 // hd), 3, hd, dtype, torch.sigmoid)
+
+
+def test_rwkv_long_prompt_with_model_decays():
+    """A 2048-step bf16 prompt at rwkv6's head dim, with the decays the
+    model makes, exp(-exp(w_raw)) with w_raw near the -2 bias."""
+    _check_rwkv(1, 2048, 4, 64, torch.bfloat16,
+                lambda x: torch.exp(-torch.exp(x - 2.0)))
+
+
+def test_rwkv_refuses_misaligned_input():
+    """The kernel stages with 16-byte copies: a view that starts off a
+    16-byte boundary is refused, not read wrongly."""
+    dev = _cuda()
+    flat = torch.zeros(2 * 8 * 2 * 32 + 1, dtype=torch.bfloat16, device=dev)
+    x = flat[1:].view(2, 8, 2, 32)
+    with pytest.raises(ValueError, match="16-byte"):
+        trs.rwkv_scan(x, x, x, x, torch.zeros((2, 32), device=dev))
 
 
 def test_launch_counters_move():
@@ -117,3 +145,23 @@ def test_launch_counters_move():
     trs.rwkv_scan_plain(x, x, x, torch.sigmoid(x), x[0, 0])
     assert tfa.LAUNCHES["flash_attention"] == fa_before + 1
     assert trs.LAUNCHES["rwkv_scan"] == rs_before + 1
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-3b", "phi3-medium-14b"])
+def test_serve_smoke_preset(arch):
+    """The port's default serve command (``--preset smoke``, the reduced
+    float32 config: rwkv6's head dim 16, phi3's 32) on the card through
+    ``launch/serve.py``: ids in [0, vocab), finite logits, and one kernel
+    launch per layer in the one prefill."""
+    from repro_torch import configs
+    from repro_torch.launch import serve
+
+    _cuda()
+    cfg = configs.get(arch).reduced()
+    counter, key = ((trs.LAUNCHES, "rwkv_scan") if cfg.family == "ssm"
+                    else (tfa.LAUNCHES, "flash_attention"))
+    counter[key] = 0
+    toks, info = serve.main(["--arch", arch, "--device", "cuda"])
+    assert counter[key] == cfg.n_layers
+    assert info["logits_finite"]
+    assert bool(((toks >= 0) & (toks < cfg.vocab)).all())

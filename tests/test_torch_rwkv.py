@@ -55,6 +55,79 @@ def test_wkv_matches_pallas(B, S, H, hd, chunk):
     np.testing.assert_allclose(np_of(st), np.asarray(st_want), **TOL)
 
 
+# the CUDA kernel's rows per thread at each head dim (csrc/rwkv_scan.cu
+# Tile); y sums the parts of hd / rows row groups
+KERNEL_ROWS = {16: 8, 64: 16}
+BF16_TOL = dict(rtol=1.6e-2, atol=4e-3)   # tests/test_torch_cuda_lm.py
+
+
+def _fma(a, b, c):
+    """float32 fma: the product is exact in float64, one rounding after."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _kernel_order(r, k, v, w, u, rows):
+    """The WKV6 recurrence in float32 with the CUDA kernel's order of work:
+    per step, p = sum_k (r_k u_k) k_k over 32 lanes (an fma chain over
+    k = lane + 32 j, then a butterfly); each row group of ``rows`` rows
+    forms its part of r . S in two fma chains (even and odd rows) and adds
+    them, row group 0 then adds the bonus, fma(p, v_c, part); y_c sums the
+    parts in row-group order; S = fma(w, S, k v). Inputs (B, S, H, hd)
+    float32 (bf16 inputs widened); returns (y float32, state)."""
+    Bn, S, H, hd = r.shape
+    groups, nu = hd // rows, max(1, hd // 32)
+    st = torch.zeros((Bn, H, hd, hd))
+    ys = []
+    for t in range(S):
+        rt, kt, vt, wt = r[:, t], k[:, t], v[:, t], w[:, t]
+        ru = torch.zeros((Bn, H, 32 * nu))
+        kk = torch.zeros((Bn, H, 32 * nu))
+        ru[..., :hd], kk[..., :hd] = rt * u, kt
+        lanes = torch.zeros((Bn, H, 32))
+        for j in range(nu):
+            lanes = _fma(ru[..., 32 * j:32 * (j + 1)],
+                         kk[..., 32 * j:32 * (j + 1)], lanes)
+        for m in (16, 8, 4, 2, 1):
+            lanes = lanes[..., :m] + lanes[..., m:2 * m]
+        p = lanes[..., 0]
+        sg = st.reshape(Bn, H, groups, rows, hd)
+        rg = rt.reshape(Bn, H, groups, rows)
+        acc = [torch.zeros((Bn, H, groups, hd)) for _ in range(2)]
+        for i in range(rows):
+            acc[i % 2] = _fma(rg[..., i, None], sg[..., i, :], acc[i % 2])
+        part = acc[0] + acc[1]
+        yt = _fma(p[..., None], vt, part[:, :, 0])
+        for g in range(1, groups):
+            yt = yt + part[:, :, g]
+        ys.append(yt)
+        st = _fma(wt[..., :, None], st, kt[..., :, None] * vt[..., None, :])
+    return torch.stack(ys, dim=1), st
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hd", [16, 64])
+def test_kernel_arithmetic_order_within_limits(hd, dtype):
+    """The CUDA kernel's order of sums, emulated here, against
+    ``rwkv_scan_pallas`` in interpret mode: float32 at the reference's
+    1e-4; bf16 inputs with y in bf16 at the card's bf16 limit and the
+    float32 state at 1e-4. S = 45 is no multiple of the kernel's chunk
+    (2048 / hd steps)."""
+    r, k, v, w, u = _inputs(2, 45, 2, hd, seed=2)
+    jd = getattr(jnp, dtype)
+    ins = [jnp.asarray(a).astype(jd) for a in (r, k, v, w)]
+    y_want, st_want = rwkv_scan_pallas(*ins, jnp.asarray(u))
+    wide = [_t(np.asarray(a.astype(jnp.float32))) for a in ins]
+    y, st = _kernel_order(*wide, _t(u), KERNEL_ROWS[hd])
+    np.testing.assert_allclose(np_of(st), np.asarray(st_want), **TOL)
+    if dtype == "float32":
+        np.testing.assert_allclose(np_of(y), np.asarray(y_want), **TOL)
+    else:
+        got = y.to(torch.bfloat16).float()
+        np.testing.assert_allclose(np_of(got),
+                                   np.asarray(y_want.astype(jnp.float32)),
+                                   **BF16_TOL)
+
+
 def test_wkv_refuses_tpu_chunk():
     arrs = [_t(a) for a in _inputs(1, 8, 1, 32)]
     with pytest.raises(ValueError, match="selects nothing"):
