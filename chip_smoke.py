@@ -20,7 +20,14 @@ entry points at full width and checks what comes out:
    every prefill layer), random weights from a seed, batch 4, 2048-token
    prompts; plus a decode-consistency check of each on a full-width
    two-layer float32 build; and before them the default serve command
-   (``--preset smoke``, reduced float32 configs) of each arch.
+   (``--preset smoke``, reduced float32 configs) of each arch;
+3. the paper's figures (``repro_torch.benchmarks``): Fig. 1 (FedMM against
+   naive parameter-space aggregation) and Fig. 2 (control variates) of
+   federated dictionary learning at the paper's sizes on its three data
+   settings, with the figures' outcomes as gates, and 10 FedMM rounds run
+   on the GPU and on the CPU from the same data and draws. These run
+   after phase 1 and before phase 2; their leaves are too small for the
+   kernel route, so they launch no kernel of the port.
 
 Each phase prints one JSON line; the last line is ``{"ok": true,
 "device": {...}}``. Any failed check raises and the script exits
@@ -96,6 +103,16 @@ REPLACES = {
 SOURCE = "src/repro_torch/kernels/csrc/quantize_block.cu"
 LM_SOURCES = {"flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
               "rwkv_scan": "src/repro_torch/kernels/csrc/rwkv_scan.cu"}
+
+# the figures phase: the paper's --full sizes (configs/dictlearn.py, the
+# reference's benchmarks/run.py), the Fig. 2 alphas, and the GPU-vs-CPU
+# check: 10 FedMM rounds, identity compressor, losses within DEVICE_RTOL,
+# the port's parity tolerance where ISTA's iterations compound
+# (RTOL_ISTA in tests/test_torch_figures.py)
+FIG_ROUNDS = 300
+FIG2_ALPHAS = (0.0, 0.01)
+FIG2_LOSS_RTOL = 0.01
+DEVICE_CHECK_ROUNDS, DEVICE_RTOL = 10, 1e-4
 
 # operations per element, counted from the kernels' source: the rounding
 # (abs, max, div, mul, floor, sub, compare, add, and for the dequantize two
@@ -838,6 +855,151 @@ def serve_model(aid: str, launches: dict, per_prefill_name: str,
 
 
 # ---------------------------------------------------------------------------
+# the paper's figures (Fig. 1 and Fig. 2 at the paper's sizes)
+# ---------------------------------------------------------------------------
+
+def _finite_history(hist) -> bool:
+    import math
+    return all(math.isfinite(v) for h in hist for v in h.values())
+
+
+def figures(card: str, profile: bool) -> list:
+    """Fig. 1 and Fig. 2 of the paper at ``--full`` on the GPU, each data
+    setting built once and reused, with the reference's outcomes as gates;
+    then the GPU-vs-CPU check. Returns the phase's JSON records."""
+    from repro_torch.benchmarks import fig1_dictlearn as fig1
+    from repro_torch.benchmarks import fig2_control_variates as fig2
+    from repro_torch.kernels import quantize_block as qb
+
+    device = "cuda"
+    kernel_launches0 = sum(qb.LAUNCHES.values())
+    t0 = time.perf_counter()
+    settings = {exp.name: fig1.make_setting(exp, seed=SEED, reduced=False,
+                                            device=device)
+                for exp in fig1.SETTINGS}
+    build_s = time.perf_counter() - t0
+    records = []
+    for exp in fig1.SETTINGS:
+        setting = settings[exp.name]
+        out = fig1.run_setting(exp, rounds=FIG_ROUNDS, reduced=False,
+                               seed=SEED, device=device, setting=setting)
+        row = fig1.summary(exp, out)
+        require(_finite_history(out["fedmm"]) and _finite_history(out["naive"]),
+                f"fig1 {exp.name}: a metric is not finite")
+        require(row["fedmm_loss_last"] < row["fedmm_loss_first"],
+                f"fig1 {exp.name}: FedMM's loss did not fall: {row}")
+        require(row["naive_loss_last"] > row["fedmm_loss_last"],
+                f"fig1 {exp.name}: naive ended at or below FedMM: {row}")
+        records.append(dict(
+            row, phase="fig1", rounds=FIG_ROUNDS, p=setting.spec.p,
+            K=setting.spec.K, clients=tuple(setting.clients.shape),
+            seconds_fedmm=out["seconds_fedmm"],
+            seconds_naive=out["seconds_naive"],
+            rounds_per_s_fedmm=FIG_ROUNDS / out["seconds_fedmm"],
+            rounds_per_s_naive=FIG_ROUNDS / out["seconds_naive"],
+            card=card))
+        emit(records[-1])
+    for exp in fig1.SETTINGS:
+        hists, secs = {}, {}
+        for alpha in FIG2_ALPHAS:
+            t1 = time.perf_counter()
+            hists[alpha] = fig2.run_setting(
+                exp, alpha=alpha, rounds=FIG_ROUNDS, reduced=False,
+                seed=SEED, device=device, setting=settings[exp.name])
+            secs[alpha] = time.perf_counter() - t1
+            require(_finite_history(hists[alpha]),
+                    f"fig2 {exp.name} alpha {alpha}: a metric is not finite")
+        tails = {a: fig2.es_tail(h, FIG_ROUNDS) for a, h in hists.items()}
+        losses = {a: h[-1]["loss"] for a, h in hists.items()}
+        a0, a1 = FIG2_ALPHAS
+        loss_gap = abs(losses[a1] - losses[a0]) / abs(losses[a0])
+        if exp.split != "homogeneous":
+            require(tails[a1] < tails[a0],
+                    f"fig2 {exp.name}: control variates did not lower the "
+                    f"E^s tail: {tails}")
+        require(loss_gap <= FIG2_LOSS_RTOL,
+                f"fig2 {exp.name}: losses differ by {loss_gap:.3%}: {losses}")
+        records.append({
+            "phase": "fig2", "setting": exp.name, "rounds": FIG_ROUNDS,
+            "es_tail_alpha0": tails[a0], "es_tail_alpha001": tails[a1],
+            "loss_alpha0": losses[a0], "loss_alpha001": losses[a1],
+            "loss_gap": loss_gap,
+            "seconds_alpha0": secs[a0], "seconds_alpha001": secs[a1],
+            "rounds_per_s": 2 * FIG_ROUNDS / (secs[a0] + secs[a1]),
+            "card": card})
+        emit(records[-1])
+    records.append(device_consistency(settings, card))
+    emit(records[-1])
+    if profile:
+        records.append(profile_figure_rounds(settings, card))
+        emit(records[-1])
+    launched = sum(qb.LAUNCHES.values()) - kernel_launches0
+    require(launched == 0, f"the figures launched {launched} quantizer "
+            f"kernels; their leaves are below the kernel route")
+    records.append({"phase": "figures", "setting_build_seconds": build_s,
+                    "seconds": time.perf_counter() - t0,
+                    "kernel_launches": launched, "card": card})
+    emit(records[-1])
+    return records
+
+
+def device_consistency(settings, card: str) -> dict:
+    """DEVICE_CHECK_ROUNDS FedMM rounds on the MovieLens-like setting with
+    the identity compressor, on the GPU and on the CPU, from the same data,
+    participation masks and seeds (``key=SEED`` is a CPU generator on both,
+    and the minibatch indices are drawn on it): the losses agree within
+    DEVICE_RTOL, or a cuSOLVER / cuBLAS path differs from the CPU's."""
+    from repro_torch import api
+    from repro_torch.benchmarks import fig1_dictlearn as fig1
+    from repro_torch.configs.dictlearn import MOVIELENS
+    from repro_torch.core import compression as C
+
+    def history(device):
+        setting = settings["movielens"]
+        setting = fig1.Setting(setting.spec,
+                               *(x.to(device) for x in setting[1:]))
+        sur, x0, data, gamma, kw = fig1.algorithm_args(
+            MOVIELENS, setting, C.identity())["fedmm"]
+        _, hist = api.run(sur, x0, data, gamma, key=SEED,
+                          n_rounds=DEVICE_CHECK_ROUNDS, device=device, **kw)
+        return api.history_list(hist)
+
+    gpu, cpu = history("cuda"), history("cpu")
+    rel = max(abs(g["loss"] - c["loss"]) / abs(c["loss"])
+              for g, c in zip(gpu, cpu))
+    same_mask = all(g["n_active"] == c["n_active"] for g, c in zip(gpu, cpu))
+    require(same_mask, "GPU and CPU runs drew different participation")
+    require(rel <= DEVICE_RTOL,
+            f"GPU and CPU losses differ by {rel:.3e} > {DEVICE_RTOL}")
+    return {"phase": "figures_device_consistency", "setting": "movielens",
+            "rounds": DEVICE_CHECK_ROUNDS, "max_rel_loss_gap": rel,
+            "rtol": DEVICE_RTOL, "loss_gpu": [g["loss"] for g in gpu],
+            "loss_cpu": [c["loss"] for c in cpu], "card": card}
+
+
+def profile_figure_rounds(settings, card: str) -> dict:
+    """``--profile``: one warm round of FedMM and one of naive at the
+    MovieLens-like setting, each under torch.profiler: seconds, kernels
+    launched, the device's idle share."""
+    from repro_torch import api
+    from repro_torch.benchmarks import fig1_dictlearn as fig1
+    from repro_torch.configs.dictlearn import MOVIELENS as exp
+    from repro_torch.core import compression as C
+
+    out = {"phase": "profile_figures", "setting": "movielens", "card": card}
+    for name, (sur, x0, data, gamma, kw) in fig1.algorithm_args(
+            exp, settings["movielens"],
+            C.block_quant(exp.quant_bits, 128)).items():
+        def one_round(state0):
+            return api.run(sur, x0, data, gamma, key=SEED, n_rounds=1,
+                           state0=state0, device="cuda", **kw)[0]
+        warm = one_round(None)
+        one_round(warm)
+        out[name] = profiled(lambda: one_round(warm))
+    return out
+
+
+# ---------------------------------------------------------------------------
 # --profile: where the time goes
 # ---------------------------------------------------------------------------
 
@@ -872,6 +1034,7 @@ def profiled(fn, top: int = 12):
                   if e not in on_device), reverse=True)
     return {"seconds": wall, "device_busy_seconds": busy_s,
             "idle_share": max(0.0, 1.0 - busy_s / wall),
+            "kernel_launches": sum(e.count for e in on_device),
             "top_ops": [{"name": k[:60], "ms": us / 1e3, "calls": n}
                         for us, k, n in ops[:top] if us > 0],
             "top_kernels": [{"name": e.key[:60], "ms": dev_us(e) / 1e3,
@@ -984,6 +1147,9 @@ def main() -> int:
     if profile:
         torch.cuda.empty_cache()
         profile_rounds()
+    _free()
+
+    figures(card, profile)
     _free()
 
     lm_phase, lm_kernels = lm_kernel_checks()

@@ -1,0 +1,63 @@
+"""Benchmark entry point and the shared figure harness (the counterpart of
+the reference's ``benchmarks/run.py``; its kernel microbenchmarks, Fig. 3
+and the roofline table are not ported yet).
+
+``harness`` is the one run loop the figure reproductions build on: it
+drives ``repro_torch.api.run``, times the trajectory (``api.run``'s history
+is read back to the host, so the time includes the device's work), and
+returns the history as a list of float dicts.
+
+    python -m repro_torch.benchmarks.run [--full] [--skip fig1,fig2] [--device cpu]
+
+Reduced sizes by default (80 rounds); ``--full`` is the paper's scale (300
+rounds). The GPU unless ``--device`` names another.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+from .. import api
+
+
+def harness(problem, x0, data, schedule, *, rounds=None, **kw):
+    """Run one trajectory of ``api.run`` (``kw`` goes to it as it is) and
+    return ``(final_state, history list of float dicts, seconds)``."""
+    t0 = time.perf_counter()
+    state, hist = api.run(problem, x0, data, schedule, n_rounds=rounds, **kw)
+    hist = api.history_list(hist)
+    return state, hist, time.perf_counter() - t0
+
+
+def figure_args(doc: str, argv=None, skip: bool = False):
+    """The figure scripts' command line: ``--full``, ``--device`` (and
+    ``--skip`` for this entry point)."""
+    ap = argparse.ArgumentParser(description=doc)
+    ap.add_argument("--full", action="store_true",
+                    help="the paper's sizes and 300 rounds (default: reduced)")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: the GPU)")
+    if skip:
+        ap.add_argument("--skip", default="", help="comma list: fig1,fig2")
+    return ap.parse_args(argv)
+
+
+def main(argv=None) -> None:
+    args = figure_args(__doc__, argv, skip=True)
+    skip = set(args.skip.split(","))
+    reduced = not args.full
+    rounds = 300 if args.full else 80
+    if "fig1" not in skip:
+        print("=== Figure 1: aggregation space (FedMM vs naive) ===")
+        from . import fig1_dictlearn
+        fig1_dictlearn.main(reduced=reduced, rounds=rounds,
+                            device=args.device)
+    if "fig2" not in skip:
+        print("\n=== Figure 2: control variates ===")
+        from . import fig2_control_variates
+        fig2_control_variates.main(reduced=reduced, rounds=rounds,
+                                   device=args.device)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,11 +1,15 @@
 """Config registry (the port's copy of ``repro/configs``): one module per
 architecture. ``get(name)`` accepts the canonical dashed id (e.g.
-"phi3-medium-14b")."""
+"phi3-medium-14b"). The paper's own
+dictionary-learning experiments (``dictlearn``) are exported beside it;
+they are not architectures and are not in ``ARCH_IDS``."""
 from __future__ import annotations
 
 import importlib
 
 from .base import ArchConfig  # noqa: F401
+from .dictlearn import (MOVIELENS, SYNTH_HETEROGENEOUS,  # noqa: F401
+                        SYNTH_HOMOGENEOUS, DictLearnExperiment)
 
 ARCH_IDS = [
     "phi3-medium-14b",

@@ -26,10 +26,32 @@ def client_seeds(quant_keys, n_leaves: int) -> np.ndarray:
                     dtype=np.int64)
 
 
+def round_draws(key, jspec, n_leaves: int):
+    """One round of the reference ``run``'s host key chain: returns the
+    next key, the round key, the round's minibatch key, the participation
+    mask and the (n, n_leaves) dither seeds."""
+    from repro import api as japi
+    key, k_round, k_batch = jax.random.split(key, 3)
+    active, quant_keys = japi.participation_draw(k_round, jspec)
+    return (key, k_round, k_batch, np.asarray(active),
+            client_seeds(quant_keys, n_leaves))
+
+
 def np_of(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
         return x.detach().cpu().numpy()
     return np.asarray(x)
+
+
+def assert_tree_close(a, b, rtol=1e-5, atol=1e-6, msg: str = "") -> None:
+    """Leaf by leaf allclose of two pytrees (tensors or arrays); the
+    default tolerance is ``tests/test_torch_driver.py``'s (rtol 1e-5,
+    atol 1e-6)."""
+    la = jax.tree.leaves(jax.tree.map(np_of, a))
+    lb = jax.tree.leaves(jax.tree.map(np_of, b))
+    assert len(la) == len(lb), msg
+    for x, y in zip(la, lb):
+        np.testing.assert_allclose(x, y, rtol=rtol, atol=atol, err_msg=msg)
 
 
 def assert_bits_equal(a, b, msg: str = "") -> None:
