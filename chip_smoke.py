@@ -25,7 +25,11 @@ entry points at full width and checks what comes out:
    naive parameter-space aggregation) and Fig. 2 (control variates) of
    federated dictionary learning at the paper's sizes on its three data
    settings, with the figures' outcomes as gates, and 10 FedMM rounds run
-   on the GPU and on the CPU from the same data and draws. These run
+   on the GPU and on the CPU from the same data and draws; then Fig. 3
+   (FedMM-OT, Algorithm 3, against FedAdam: ICNN potentials, L2-UVP
+   against the closed-form Gaussian map) at the paper's ``--full`` sizes,
+   dims 16, 32 and 64 for 100 rounds, gated at d = 16, with 10 FedMM-OT
+   rounds run on the GPU and on the CPU from the same draws. These run
    after phase 1 and before phase 2; their leaves are too small for the
    kernel route, so they launch no kernel of the port.
 
@@ -93,6 +97,7 @@ BF16_OPS_PER_S = 989e12
 
 REPLACES = {
     "quantize": "src/repro/kernels/quantize_block.py:205",
+    "quantize_block": "src/repro/kernels/quantize_block.py:332",
     "quantize_seeded": "src/repro/kernels/quantize_block.py:195",
     "encode": "src/repro/kernels/quantize_block.py:257",
     "encode_seeded": "src/repro/kernels/quantize_block.py:247",
@@ -100,6 +105,11 @@ REPLACES = {
     "flash_attention": "src/repro/kernels/flash_attention.py:93",
     "rwkv_scan": "src/repro/kernels/rwkv_scan.py:68",
 }
+# the kernels line's rows over the quantizer's LAUNCHES counts, where a row
+# takes more than its own: the flat stream (quantize_block, the reference's
+# :332) reaches the streamed pallas_call at :205, so its launches are that
+# row's launches too
+ROW_COUNTS = {"quantize": ("quantize", "quantize_block")}
 SOURCE = "src/repro_torch/kernels/csrc/quantize_block.cu"
 LM_SOURCES = {"flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
               "rwkv_scan": "src/repro_torch/kernels/csrc/rwkv_scan.cu"}
@@ -113,6 +123,10 @@ FIG_ROUNDS = 300
 FIG2_ALPHAS = (0.0, 0.01)
 FIG2_LOSS_RTOL = 0.01
 DEVICE_CHECK_ROUNDS, DEVICE_RTOL = 10, 1e-4
+# Fig. 3 at the reference's benchmarks/run.py --full: dims and rounds; the
+# gates and the GPU-vs-CPU check (10 FedMM-OT rounds, L2-UVP within
+# DEVICE_RTOL) at FIG3_GATE_DIM
+FIG3_DIMS, FIG3_ROUNDS, FIG3_GATE_DIM = (16, 32, 64), 100, 16
 
 # operations per element, counted from the kernels' source: the rounding
 # (abs, max, div, mul, floor, sub, compare, add, and for the dequantize two
@@ -216,9 +230,11 @@ def bits_equal(a, b) -> bool:
 
 def kernel_checks(qb):
     """Each kernel on the w leaf's (358400, 256) rows (the reduce over a
-    16-client stack of them) against its plain version: bits, times and
-    the bound. Returns one record per kernel."""
+    16-client stack of them; the flat-stream route on the same elements as
+    one stream) against its plain version: bits, times and the bound.
+    Returns one record per kernel."""
     import torch
+    from repro_torch.kernels import ops as kernel_ops
     device, g = "cuda", BLOCK
     gen = torch.Generator(device=device).manual_seed(SEED + 1)
     x = torch.randn((D_MODEL * D_FF // g, g), generator=gen,
@@ -260,6 +276,13 @@ def kernel_checks(qb):
             lambda: qb.quantize_encode_grouped_plain(x, bits=BITS, group=g,
                                                      seed=seed),
             5 * n + 4 * n // g, (OPS_ROUND + OPS_HASH) * n),
+        # the flat stream (D == g): the w leaf as Compressor.apply sends it
+        "quantize_block": (
+            lambda: kernel_ops.quantize_dequantize_with_dither(
+                x.reshape(-1), u.reshape(-1), bits=BITS, block=g),
+            lambda: qb.ref.quantize_block_ref(x.reshape(-1), u.reshape(-1),
+                                              bits=BITS, block=g),
+            12 * n, (OPS_ROUND + OPS_DEQ) * n),
     }
     for name, (kern, plain, nbytes, ops) in cases.items():
         got, want = kern(), plain()
@@ -496,10 +519,13 @@ def drive_slice():
                 f"round: |scan - vmap| {gap} vs update {moved}")
     require(float(m_scan["comm_bytes"]) == float(m_vmap["comm_bytes"]),
             "scan and vmap rounds bill different bytes")
+    launches = {name: sum(qb.LAUNCHES[k] for k in ROW_COUNTS.get(name,
+                                                                 (name,)))
+                for name in qb.LAUNCHES}
     out.update(seconds_scan_round=secs_scan,
                encode_launches_hash_run=enc_after_run,
-               launches=dict(qb.LAUNCHES))
-    for name, count in qb.LAUNCHES.items():
+               launches=launches, launch_counts=dict(qb.LAUNCHES))
+    for name, count in launches.items():
         require(count > 0, f"kernel {name} was not launched on the main "
                 f"path")
     return out
@@ -1000,6 +1026,119 @@ def profile_figure_rounds(settings, card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Fig. 3: FedMM-OT against FedAdam at the paper's sizes
+# ---------------------------------------------------------------------------
+
+def fig3_phase(card: str, profile: bool) -> list:
+    """Fig. 3 at ``--full`` on the GPU through ``fig3_ot.main``: one record
+    per dim with both L2-UVP curves (every 10 rounds), each algorithm's
+    first non-finite round and rounds/s (host clock around its
+    trajectory). Gates at FIG3_GATE_DIM: every round's L2-UVP of both
+    algorithms finite, each curve's last point below its first; then the
+    GPU-vs-CPU check. Reported, not gated: which algorithm ends lower, and
+    whether the larger dims diverge (the reference's FedMM-OT does, on a
+    CPU). Returns the phase's records."""
+    from repro_torch.benchmarks import fig3_ot as fig3
+    from repro_torch.kernels import quantize_block as qb
+
+    kernel_launches0 = sum(qb.LAUNCHES.values())
+    t0 = time.perf_counter()
+    rows = fig3.main(dims=FIG3_DIMS, rounds=FIG3_ROUNDS, device="cuda")
+    records = []
+    for row in rows:
+        mm, fa = row["fedmm_ot_curve"], row["fedadam_curve"]
+        finite = (row["fedmm_ot_first_nonfinite"] is None
+                  and row["fedadam_first_nonfinite"] is None)
+        records.append({
+            "phase": "fig3", "dim": row["dim"], "rounds": FIG3_ROUNDS,
+            "fedmm_ot_curve": mm, "fedadam_curve": fa,
+            "fedmm_ot_first_nonfinite": row["fedmm_ot_first_nonfinite"],
+            "fedadam_first_nonfinite": row["fedadam_first_nonfinite"],
+            "fedmm_ot_ends_below_fedadam": mm[-1] < fa[-1] if finite
+            else None,
+            "seconds_fedmm_ot": row["seconds_fedmm_ot"],
+            "seconds_fedadam": row["seconds_fedadam"],
+            "rounds_per_s_fedmm_ot": FIG3_ROUNDS / row["seconds_fedmm_ot"],
+            "rounds_per_s_fedadam": FIG3_ROUNDS / row["seconds_fedadam"],
+            "card": card})
+        emit(records[-1])
+        if row["dim"] == FIG3_GATE_DIM:
+            require(finite, f"fig3 d={row['dim']}: an L2-UVP is not finite: "
+                    f"{records[-1]}")
+            for name, curve in (("FedMM-OT", mm), ("FedAdam", fa)):
+                require(curve[-1] < curve[0], f"fig3 d={row['dim']}: "
+                        f"{name}'s L2-UVP did not fall: {curve}")
+    records.append(fig3_device_consistency(card))
+    emit(records[-1])
+    if profile:
+        records.append(profile_fig3_rounds(card))
+        emit(records[-1])
+    launched = sum(qb.LAUNCHES.values()) - kernel_launches0
+    require(launched == 0, f"fig3 launched {launched} quantizer kernels; "
+            f"it runs the identity compressor")
+    records.append({"phase": "fig3_total", "seconds": time.perf_counter() - t0,
+                    "kernel_launches": launched, "card": card})
+    emit(records[-1])
+    return records
+
+
+def _fig3_start(device):
+    """Fig. 3's data and both algorithms' starts at FIG3_GATE_DIM from
+    SEED, drawn on the host: the same on every device."""
+    from repro_torch.benchmarks import fig3_ot as fig3
+
+    prob = fig3.make_problem(FIG3_GATE_DIM, SEED, device=device)
+    spec, cfg = fig3.setup(FIG3_GATE_DIM)
+    return (prob, spec, cfg) + fig3.initial_states(spec, cfg, SEED, device)
+
+
+def fig3_device_consistency(card: str) -> dict:
+    """DEVICE_CHECK_ROUNDS FedMM-OT rounds at FIG3_GATE_DIM on the GPU and
+    on the CPU from the same host draws: every round's L2-UVP within
+    DEVICE_RTOL."""
+    from repro_torch.benchmarks import fig3_ot as fig3
+
+    def uvp(device):
+        prob, spec, cfg, st0, _ = _fig3_start(device)
+        return fig3.run_fedmm_ot(prob, spec, cfg, st0, DEVICE_CHECK_ROUNDS,
+                                 SEED, device)[0]
+
+    gpu, cpu = uvp("cuda"), uvp("cpu")
+    rel = max(abs(g - c) / abs(c) for g, c in zip(gpu, cpu))
+    require(rel <= DEVICE_RTOL, f"fig3: GPU and CPU L2-UVP differ by "
+            f"{rel:.3e} > {DEVICE_RTOL}: {gpu} vs {cpu}")
+    return {"phase": "fig3_device_consistency", "dim": FIG3_GATE_DIM,
+            "rounds": DEVICE_CHECK_ROUNDS, "max_rel_uvp_gap": rel,
+            "rtol": DEVICE_RTOL, "uvp_gpu": gpu, "uvp_cpu": cpu,
+            "card": card}
+
+
+def profile_fig3_rounds(card: str) -> dict:
+    """``--profile``: one warm FedMM-OT round (with its L2-UVP) and one
+    warm FedAdam round (with its L2-UVP) at FIG3_GATE_DIM under
+    torch.profiler: seconds, kernels launched, the device's idle share."""
+    from repro_torch import api
+    from repro_torch.benchmarks import fig3_ot as fig3
+
+    prob, spec, cfg, st0, fa0 = _fig3_start("cuda")
+
+    def fedmm_round(state0):
+        problem, x0, data, schedule, kw = fig3.fedmm_ot_args(
+            prob, spec, cfg, state0, SEED)
+        return api.run(problem, x0, data, schedule, n_rounds=1,
+                       device="cuda", **kw)[0]
+
+    def fedadam_round(state):
+        return fig3.fedadam_round(prob, spec, state, SEED, "cuda")[0]
+
+    warm = fedmm_round(fedmm_round(st0))
+    fa = fedadam_round(fedadam_round(fa0))
+    return {"phase": "profile_fig3", "dim": FIG3_GATE_DIM, "card": card,
+            "fedmm_ot": profiled(lambda: fedmm_round(warm)),
+            "fedadam": profiled(lambda: fedadam_round(fa))}
+
+
+# ---------------------------------------------------------------------------
 # --profile: where the time goes
 # ---------------------------------------------------------------------------
 
@@ -1150,6 +1289,8 @@ def main() -> int:
     _free()
 
     figures(card, profile)
+    _free()
+    fig3_phase(card, profile)
     _free()
 
     lm_phase, lm_kernels = lm_kernel_checks()

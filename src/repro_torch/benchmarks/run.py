@@ -1,16 +1,18 @@
 """Benchmark entry point and the shared figure harness (the counterpart of
-the reference's ``benchmarks/run.py``; its kernel microbenchmarks, Fig. 3
-and the roofline table are not ported yet).
+the reference's ``benchmarks/run.py``; its kernel microbenchmarks and the
+roofline table are not ported yet).
 
 ``harness`` is the one run loop the figure reproductions build on: it
 drives ``repro_torch.api.run``, times the trajectory (``api.run``'s history
 is read back to the host, so the time includes the device's work), and
 returns the history as a list of float dicts.
 
-    python -m repro_torch.benchmarks.run [--full] [--skip fig1,fig2] [--device cpu]
+    python -m repro_torch.benchmarks.run [--full] [--skip fig1,fig2,fig3] [--device cpu]
 
-Reduced sizes by default (80 rounds); ``--full`` is the paper's scale (300
-rounds). The GPU unless ``--device`` names another.
+Reduced sizes by default (Fig. 1 and Fig. 2 80 rounds; Fig. 3 dims 4, 8,
+16 and 40 rounds); ``--full`` is the paper's scale (300 rounds; Fig. 3
+dims 16, 32, 64 and 100 rounds). The GPU unless ``--device`` names
+another.
 """
 from __future__ import annotations
 
@@ -34,11 +36,11 @@ def figure_args(doc: str, argv=None, skip: bool = False):
     ``--skip`` for this entry point)."""
     ap = argparse.ArgumentParser(description=doc)
     ap.add_argument("--full", action="store_true",
-                    help="the paper's sizes and 300 rounds (default: reduced)")
+                    help="the paper's sizes (default: reduced)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the GPU)")
     if skip:
-        ap.add_argument("--skip", default="", help="comma list: fig1,fig2")
+        ap.add_argument("--skip", default="", help="comma list: fig1,fig2,fig3")
     return ap.parse_args(argv)
 
 
@@ -57,6 +59,11 @@ def main(argv=None) -> None:
         from . import fig2_control_variates
         fig2_control_variates.main(reduced=reduced, rounds=rounds,
                                    device=args.device)
+    if "fig3" not in skip:
+        print("\n=== Figure 3: FedMM-OT vs FedAdam (L2-UVP) ===")
+        from . import fig3_ot
+        fig3_ot.main(dims=(4, 8, 16) if reduced else (16, 32, 64),
+                     rounds=40 if reduced else 100, device=args.device)
 
 
 if __name__ == "__main__":

@@ -7,7 +7,8 @@ tensors of them on the GPU, or on the device the caller names, and
 arrays (seeds, digests) become int64 tensors, since PyTorch has little
 uint32 arithmetic. bfloat16 arrays (``ml_dtypes.bfloat16``, which
 ``torch.tensor`` cannot take) cross through their 16-bit pattern, bit for
-bit. ``model_params_to_torch`` carries a model's weights across.
+bit. ``model_params_to_torch`` carries a model's weights across, and
+``ot_state_to_torch`` the FedMM-OT and FedAdam states.
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ import torch
 from .api.driver import DriverState, resolve_device
 from .models import transformer as T
 from .models.layers import Params
+from .optim.optimizers import AdamState
 from .tree import tree_map
 
 
@@ -75,3 +77,22 @@ def model_params_to_torch(cfg, np_params, device=None) -> Params:
     tree = {"embedding": np_params["embedding"], "layers": layers,
             "final_norm": np_params["final_norm"]}
     return Params(to_torch(tree, dev))
+
+
+def ot_state_to_torch(state, cls, device=None):
+    """The reference's ``FedOTState`` or ``FedAdamState`` with numpy leaves
+    (``AdamState`` inside) -> the port's NamedTuple ``cls`` of the same
+    fields (``core.fedmm_ot.FedOTState`` or ``FedAdamState``) on
+    ``device`` (the GPU unless asked otherwise). ``to_torch`` alone would
+    rebuild the reference's own NamedTuple types."""
+    dev = resolve_device(device)
+    fields = {}
+    for name in cls._fields:
+        value = getattr(state, name)
+        if isinstance(value, tuple) and hasattr(value, "_fields"):
+            value = AdamState(*(to_torch(getattr(value, f), dev)
+                                for f in AdamState._fields))
+        else:
+            value = to_torch(value, dev)
+        fields[name] = value
+    return cls(**fields)

@@ -20,13 +20,17 @@ from . import rwkv_scan as rs
 
 def quantize_dequantize_with_dither(x, u, bits: int = 8, block: int = 256):
     """Block quantize -> dequantize of a flat float32 stream with caller-
-    provided uniform draws ``u`` (same shape as ``x``); pads to the block."""
+    provided uniform draws ``u`` (same shape as ``x``); pads to the block.
+    The counterpart of ``quantize_block_pallas``: the grouped kernel with
+    one group per row (D == g), its launches counted under
+    ``quantize_block``."""
     n = x.shape[0]
     pad = (-n) % block
     xp = F.pad(x, (0, pad)) if pad else x
     up = F.pad(u, (0, pad)) if pad else u
     out = qb.quantize_grouped(xp.reshape(-1, block), up.reshape(-1, block),
-                              bits=bits, group=block)
+                              bits=bits, group=block,
+                              count_as="quantize_block")
     return out.reshape(-1)[:n]
 
 

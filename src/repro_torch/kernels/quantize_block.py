@@ -39,9 +39,12 @@ SOURCE = B.CSRC / "quantize_block.cu"
 # no FMA contraction: the rounding must match the reference bit for bit
 NVCC_FLAGS = B.BASE_FLAGS + ("-fmad=false",)
 
-# launches per kernel variant: streamed dither, dither made in the kernel
+# launches per kernel variant: streamed dither, dither made in the kernel;
+# ``quantize_block`` counts the streamed ``quantize`` kernel's launches for
+# the flat stream (``ops.quantize_dequantize_with_dither``), apart from the
+# grouped route's
 LAUNCHES = {"quantize": 0, "quantize_seeded": 0, "encode": 0,
-            "encode_seeded": 0, "decode_reduce": 0}
+            "encode_seeded": 0, "decode_reduce": 0, "quantize_block": 0}
 
 _LIB = None
 
@@ -162,10 +165,12 @@ def decode_reduce_grouped_plain(codes, scales, w, *, bits=8, group=256):
 # ---------------------------------------------------------------------------
 
 def quantize_grouped(x2, u2=None, *, bits: int = 8, group: int = 256,
-                     seed=None):
+                     seed=None, count_as: str | None = None):
     """Fused quantize -> dequantize of an (R, D) float32 view, groups of
     ``group`` along the last axis. ``u2``: streamed uniform draws (R, D),
-    or None to make the dither from ``seed`` (a 32-bit integer)."""
+    or None to make the dither from ``seed`` (a 32-bit integer).
+    ``count_as`` names the ``LAUNCHES`` entry a launch adds to (by default
+    the dither variant's)."""
     _check_grouped(x2, group, bits)
     if u2 is None and seed is None:
         raise ValueError("need streamed draws u2 or an in-kernel dither seed")
@@ -180,7 +185,8 @@ def quantize_grouped(x2, u2=None, *, bits: int = 8, group: int = 256,
         _seed_u32(0 if seed is None else seed), int(u2 is None),
         x2.device.index or 0, B.stream_of(x2))
     B.check(rc, "quantize")
-    LAUNCHES["quantize" if u2 is not None else "quantize_seeded"] += 1
+    LAUNCHES[count_as or ("quantize" if u2 is not None
+                          else "quantize_seeded")] += 1
     return out
 
 

@@ -9,6 +9,7 @@ import pytest
 import torch
 
 from repro_torch.core import compression as TC
+from repro_torch.kernels import ops as kops
 from repro_torch.kernels import quantize_block as tqb
 
 pytestmark = pytest.mark.cuda
@@ -83,6 +84,12 @@ def test_launches_count_kernel_calls():
     tqb.quantize_grouped(x.to(dev), seed=1)
     assert tqb.LAUNCHES["encode"] == before["encode"] + 1
     assert tqb.LAUNCHES["quantize_seeded"] == before["quantize_seeded"] + 1
+    # the flat stream's launch counts once, under its own entry
+    before = dict(tqb.LAUNCHES)
+    kops.quantize_dequantize_with_dither(x.reshape(-1).to(dev),
+                                         u.reshape(-1).to(dev))
+    assert tqb.LAUNCHES["quantize_block"] == before["quantize_block"] + 1
+    assert sum(tqb.LAUNCHES.values()) == sum(before.values()) + 1
 
 
 @pytest.mark.parametrize("shard_safe", [False, True])
