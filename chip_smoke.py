@@ -12,7 +12,13 @@ shapes and times both, then drives the port's two paths through their
 entry points at full width and checks what comes out:
 
 1. one FedMM round of Algorithm 2 (``repro_torch.api.run``/``step`` and
-   the ``Compressor`` methods), which runs the quantizer kernels;
+   the ``Compressor`` methods), which runs the quantizer kernels; then
+   the same workload on the mesh paths (the ``mesh`` phase:
+   ``torch.distributed`` started in this process at world size 1 over
+   NCCL, a CUDA ``DeviceMesh``, ``uplink="gather"`` and ``"reduce"``,
+   the two-tier topology off and on a 1 x 1 ``(edge, client)`` mesh,
+   the per-shard quantizer wrappers on a ``DTensor``), which runs the
+   fused decode + reduce kernel inside every reduce round;
 2. serving (``repro_torch.launch.serve.serve``: prefill, then greedy
    decode with the ring-buffer KV cache) of phi3-medium-14b (40 layers,
    bf16, the flash-attention kernel in every prefill layer; then the
@@ -69,6 +75,7 @@ N_CLIENTS, BATCH = 16, 256
 PARTICIPATION, ALPHA = 0.5, 0.1
 BITS, BLOCK = 8, 256
 ROUNDS = 5
+MESH_ROUNDS = 3
 GAMMA = 0.5
 RHO = 0.02                        # <= 1 / L: L ~ 30 for unit-normal x
 SEED = 0
@@ -529,6 +536,361 @@ def drive_slice():
         require(count > 0, f"kernel {name} was not launched on the main "
                 f"path")
     return out
+
+
+# ---------------------------------------------------------------------------
+# the mesh phase: the multi-GPU uplinks and the two-tier topology over NCCL
+# ---------------------------------------------------------------------------
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _compare(a, b, rtol: float, atol: float):
+    """``(allclose, largest |a - b|)`` over the leaves of two trees, on the
+    card; a client-stacked leaf one client at a time (whole, its
+    temporaries would be several GB)."""
+    import torch
+    from repro_torch.tree import tree_leaves
+    la, lb = tree_leaves(a), tree_leaves(b)
+    if len(la) != len(lb) or any(x.shape != y.shape for x, y in zip(la, lb)):
+        return False, float("inf")
+    ok, gap = True, 0.0
+    for x, y in zip(la, lb):
+        for p, q in (zip(x, y) if x.ndim == 3 else ((x, y),)):
+            p, q = p.to("cuda"), q.to("cuda")
+            ok = ok and bool(torch.allclose(p, q, rtol=rtol, atol=atol))
+            gap = max(gap, max_abs_err(p, q))
+    return ok, gap
+
+
+def _trees_bits_equal(a, b) -> bool:
+    from repro_torch.tree import tree_leaves
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(bits_equal(x, y)
+                                      for x, y in zip(la, lb))
+
+
+def mesh_phase():
+    """Phase 1's workload on the mesh paths at world size 1 over NCCL: a
+    CUDA ``DeviceMesh`` with a "clients" dim and a 1 x 1 ``(edge,
+    client)`` one, the process group started in this process. Gates (each
+    raises): gather on the mesh bit-identical to the single-device run with
+    the gathered stack's bytes; reduce allclose to gather with the float32
+    partial's bytes and one fused decode + reduce launch per round for w;
+    two-tier off the mesh (4 edges of 4 clients) with exact backbone bytes
+    and the 4 tier-boundary encodes per round; two-tier on the 1 x 1 mesh
+    matching off the mesh; the per-shard wrappers on a Shard(0) DTensor
+    bit-identical to the unsharded kernel and to the plain version.
+
+    Every gate reads free runs of ``api.run`` (MESH_ROUNDS rounds from
+    SEED), but two, which are stepped from one state with the same draws,
+    round by round (``lockstep``), and whose free runs' gaps are recorded
+    beside the lockstep's: two-tier raw against flat, whose free runs
+    draw different masks from round 2 (the two-tier run draws its edge
+    seeds from the round's generator), and the one-edge reduce against
+    off the mesh, which sum in another order, so that a drift element
+    that moves by one ulp can cross a rounding edge and move its code a
+    whole level in the next round. The kernels' launches are
+    counted per path (``launches``: the mesh runs, the two-tier runs off
+    the mesh) over the free runs of that path only, the counts zeroed
+    just before each run; the single-device runs that the gates compare
+    with are left out. Returns the phase's record."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import Shard, distribute_tensor
+    from repro_torch import api
+    from repro_torch.core import compression as C
+    from repro_torch.core.quadratic import quadratic_for_objective
+    from repro_torch.kernels import ops as kernel_ops
+    from repro_torch.kernels import quantize_block as qb
+    from repro_torch.launch.mesh import make_edge_mesh
+    from repro_torch.tree import tree_leaves, tree_map
+
+    device, sync = "cuda", torch.cuda.synchronize
+    torch.cuda.set_device(0)
+    out = {"phase": "mesh", "rounds": MESH_ROUNDS, "world_size": 1,
+           "backend": "nccl"}
+    t0 = time.perf_counter()
+    dist.init_process_group("nccl",
+                            init_method=f"tcp://localhost:{_free_port()}",
+                            rank=0, world_size=1)
+    try:
+        probe = torch.ones(1, device=device)
+        dist.all_reduce(probe)
+        sync()
+        out["nccl_init_seconds"] = time.perf_counter() - t0
+        mesh = init_device_mesh("cuda", (1,), mesh_dim_names=("clients",))
+        emesh = make_edge_mesh(1, 1)
+        require(dist.get_backend(mesh.get_group("clients")) == "nccl",
+                "the client dim's group is not NCCL")
+
+        xs, ys = make_workload()
+        problem = api.as_problem(quadratic_for_objective(loss_fn, rho=RHO))
+        x0 = {"w": torch.zeros((D_MODEL, D_FF), device=device),
+              "b": torch.zeros((D_FF,), device=device)}
+        n_leaves = len(tree_leaves(x0))
+        gates, seconds, peaks, launches, gaps = {}, {}, {}, {}, {}
+        paths = {"mesh": {}, "two_tier": {}}
+
+        def spec_for(variates="zero", checksum=False, edges=None,
+                     reencode=False):
+            topo = ({} if edges is None else
+                    {"topology": api.Topology.two_tier(edges,
+                                                       reencode=reencode)})
+            return api.FederationSpec(
+                n_clients=N_CLIENTS, participation=PARTICIPATION,
+                alpha=0.0 if variates == "off" else ALPHA,
+                variates=variates,
+                compressor=C.block_quant(BITS, BLOCK, dither="kernel",
+                                         checksum=checksum), **topo)
+
+        def free_run(name, path, spec, **kw):
+            """MESH_ROUNDS rounds through api.run: seconds per round, peak
+            memory, kernel launches per round; ``path`` ("mesh",
+            "two_tier" or "single_device") takes the run's launches."""
+            _free()
+            qb.reset_launches()
+            torch.cuda.reset_peak_memory_stats()
+            sync()
+            t = time.perf_counter()
+            state, hist = api.run(problem, x0, (xs, ys), GAMMA, spec=spec,
+                                  key=SEED, n_rounds=MESH_ROUNDS,
+                                  device=device, **kw)
+            sync()
+            seconds[name] = (time.perf_counter() - t) / MESH_ROUNDS
+            peaks[name] = torch.cuda.max_memory_allocated()
+            counts = {k: v for k, v in qb.LAUNCHES.items() if v}
+            launches[name] = {k: v / MESH_ROUNDS for k, v in counts.items()}
+            for k, v in counts.items():
+                if path in paths:
+                    paths[path][k] = paths[path].get(k, 0) + v
+            # compared on the host, so that a state kept for a comparison
+            # does not sit in the next run's peak
+            return tree_map(lambda t: t.cpu(), state), hist, counts
+
+        def lockstep(spec, first, other, check):
+            """MESH_ROUNDS rounds, each from one state with the same draws:
+            ``first`` (step kwargs), whose state carries on, then
+            ``other``; ``check(first_out, other_out)`` holds each round (an
+            out is (state, metrics))."""
+            state = api.init(problem, x0, spec, device=device)
+            gen = torch.Generator().manual_seed(SEED + 7)
+
+            def one(kw, active, seeds, edge_seeds):
+                kw = dict(kw)
+                step_spec = kw.pop("spec", spec)
+                e = (edge_seeds[:step_spec.topology.n_edges]
+                     if step_spec.topology.is_two_tier else None)
+                return api.step(
+                    problem, step_spec, state, (xs, ys), torch.tensor(GAMMA),
+                    None, active=active, seeds=seeds, edge_seeds=e,
+                    device=device, **kw)
+
+            for _ in range(MESH_ROUNDS):
+                active, seeds = api.participation_draw(gen, spec, n_leaves)
+                edge_seeds = torch.tensor(
+                    [C.leaf_seeds(gen, n_leaves) for _ in range(4)])
+                ref = one(first, active, seeds, edge_seeds)
+                check(ref, one(other, active, seeds, edge_seeds))
+                _free()
+                state = ref[0]
+                del ref
+                _free()
+
+        def gate(name, ok):
+            gates[name] = gates.get(name, True) and bool(ok)
+
+        def metrics_equal(h, g, keys):
+            return all(torch.equal(h[k], g[k]) for k in keys)
+
+        # -- 1. gather on the mesh: bit for bit the single-device run ----
+        spec = spec_for()
+        st_1, h_1, _ = free_run("single_device", "single_device", spec)
+        st_g, h_g, _ = free_run("gather", "mesh", spec, mesh=mesh)
+        gate("gather_bit_identical",
+             _trees_bits_equal(tuple(st_1)[:3], tuple(st_g)[:3])
+             and metrics_equal(h_1, h_g, h_1))
+        per_client = spec.compressor.payload_bytes(x0)
+        out["payload_bytes_per_client"] = per_client
+        out["gather_collective_bytes"] = h_g[
+            "collective_payload_bytes"].tolist()
+        gate("gather_collective_bytes", torch.equal(
+            h_g["collective_payload_bytes"],
+            torch.full((MESH_ROUNDS,), float(N_CLIENTS * per_client)))
+            and N_CLIENTS * per_client == 1_491_235_200)
+        del st_1, h_1
+
+        # -- 2. reduce on the mesh, variates zero and off ----------------
+        partial_bytes = float((D_MODEL * D_FF + D_FF) * 4)
+        for variates in ("zero", "off"):
+            spec = spec_for(variates)
+            if variates == "off":
+                st_g, h_g, _ = free_run("gather_off", "mesh", spec, mesh=mesh)
+            st_r, h_r, n_r = free_run(f"reduce_{variates}", "mesh", spec,
+                                      mesh=mesh, uplink="reduce")
+            gate(f"reduce_{variates}_collective_bytes", torch.equal(
+                h_r["collective_payload_bytes"],
+                torch.full((MESH_ROUNDS,), partial_bytes))
+                and partial_bytes == 367_073_280)
+            gate(f"reduce_{variates}_counts_equal_gather",
+                 metrics_equal(h_r, h_g, ("n_active", "comm_bytes")))
+            # x, and with variates on v and v_i
+            ok, gaps[f"reduce_{variates}_vs_gather"] = _compare(
+                tuple(st_r)[:3], tuple(st_g)[:3], 1e-5, 1e-6)
+            gate(f"reduce_{variates}_allclose_to_gather", ok)
+            if variates == "off":
+                # the fused decode + reduce, once per round, for w (b's
+                # 17,920 elements stay under the kernel route)
+                gate("reduce_off_one_decode_reduce_per_round",
+                     n_r.get("decode_reduce", 0) == MESH_ROUNDS)
+            del st_r, st_g
+
+        # -- 3. two-tier off the mesh, 4 edges of 4 clients --------------
+        flat = spec_for(checksum=True)
+        raw = spec_for(checksum=True, edges=4)
+        re_ = spec_for(checksum=True, edges=4, reencode=True)
+        per_edge = C._tree_bytes(re_.compressor.encode([0, 0], x0))
+        out["reencoded_edge_payload_bytes"] = per_edge
+        st_f, h_f, _ = free_run("flat_checksum", "single_device", flat)
+        st_t, h_t, _ = free_run("two_tier_raw", "two_tier", raw)
+        st_e, h_e, n_e = free_run("two_tier_reencode", "two_tier", re_)
+        # recorded only: from round 2 the free runs draw different masks
+        # (the two-tier run's edge seeds come from the same generator)
+        gaps["free_two_tier_raw_vs_flat"] = dict(zip(
+            ("allclose", "gap"),
+            _compare(tuple(st_t)[:3], tuple(st_f)[:3], 1e-5, 1e-6)),
+            n_active_equal=bool(torch.equal(h_t["n_active"],
+                                            h_f["n_active"])))
+        gate("two_tier_raw_backbone_bytes", torch.equal(
+            h_t["backbone_bytes"], torch.full((MESH_ROUNDS,),
+                                              4 * partial_bytes))
+             and 4 * partial_bytes == 1_468_293_120)
+        ok, gaps["two_tier_reencode_vs_raw"] = _compare(st_e.x, st_t.x,
+                                                        0.0, 0.02)
+        n_active = h_e["n_active"]
+        gate("two_tier_reencode_within_lossy_bound",
+             ok and all(bool(torch.isfinite(v).all())
+                        for v in tree_leaves(st_e.x)))
+        # the backbone undercuts the raw partials, and the uplink where
+        # more clients sent than there are edges
+        gate("two_tier_reencode_backbone_bytes",
+             torch.equal(h_e["backbone_bytes"],
+                         torch.full((MESH_ROUNDS,), 4.0 * per_edge))
+             and 4 * per_edge < 4 * partial_bytes
+             and bool(((n_active <= 4)
+                       | (4 * per_edge < h_e["uplink_bytes"])).all()))
+        gate("two_tier_reencode_encode_launches",
+             n_e.get("encode_seeded", 0) == (N_CLIENTS + 4) * MESH_ROUNDS)
+        out.update(two_tier_backbone_bytes_raw=h_t["backbone_bytes"].tolist(),
+                   two_tier_backbone_bytes_reencode=h_e[
+                       "backbone_bytes"].tolist())
+        del st_f, st_t, st_e
+
+        def check_flat(ref, got):
+            (sr, mr), (sf, mf) = ref, got
+            ok, gap = _compare(tuple(sr)[:3], tuple(sf)[:3], 1e-5, 1e-6)
+            gate("two_tier_raw_allclose_to_flat", ok and metrics_equal(
+                mr, mf, ("n_active", "uplink_bytes")))
+            gaps.setdefault("lockstep_two_tier_raw_vs_flat", []).append(gap)
+
+        lockstep(raw, {}, dict(spec=flat), check_flat)
+
+        # -- 4. two-tier on the 1 x 1 (edge, client) mesh ----------------
+        one = spec_for(edges=1)
+        on_emesh = dict(mesh=emesh, client_axis="client")
+        st_o, h_o, _ = free_run("two_tier_one_edge_off_mesh", "two_tier", one)
+        st_m, h_m, _ = free_run("two_tier_one_edge_gather", "mesh", one,
+                                **on_emesh)
+        gate("one_edge_mesh_gather_bit_identical",
+             _trees_bits_equal(tuple(st_o)[:3], tuple(st_m)[:3])
+             and metrics_equal(h_o, h_m, h_o))
+        del st_m
+        st_r, h_r, _ = free_run("two_tier_one_edge_reduce", "mesh", one,
+                                uplink="reduce", **on_emesh)
+        bill = ("n_active", "uplink_bytes", "backbone_bytes", "comm_bytes")
+        gate("one_edge_mesh_reduce_counts_equal",
+             metrics_equal(h_r, h_o, bill))
+        gaps["free_one_edge_reduce_vs_off_mesh"] = dict(zip(
+            ("allclose", "gap"),
+            _compare(tuple(st_r)[:3], tuple(st_o)[:3], 1e-5, 1e-6)))
+        del st_o, st_r
+
+        def compare_one(ref, got):
+            (so, mo), (sr, mr) = ref, got
+            ok, gap = _compare(tuple(sr)[:3], tuple(so)[:3], 1e-5, 1e-6)
+            gate("one_edge_mesh_reduce_allclose",
+                 ok and metrics_equal(mr, mo, bill))
+            gaps.setdefault("lockstep_one_edge_reduce_vs_off_mesh",
+                            []).append(gap)
+
+        lockstep(one, {}, dict(uplink="reduce", **on_emesh), compare_one)
+
+        # -- 5. the per-shard wrappers on a Shard(0) DTensor of w --------
+        # against the unsharded kernel and the plain version, at the
+        # kernel's group (BLOCK): block_quant(shard_safe=True) picks the
+        # group that survives 32-way sharding of d_ff 17,920, which is 16
+        # and off the kernel route; its DTensor route is checked too
+        _free()
+        gen = torch.Generator(device=device).manual_seed(SEED + 9)
+        w = torch.randn((D_MODEL, D_FF), generator=gen, device=device) * 3.0
+        seed = 0x9E3779B9
+        g = BLOCK
+        u = C.hash_dither(seed, w.shape, device=device)
+        ws = distribute_tensor(w, mesh, [Shard(0)], src_data_rank=None)
+        qb.reset_launches()
+        got_q = kernel_ops.quantize_dequantize_sharded(ws, u, bits=BITS,
+                                                       group=g)
+        got_c, got_s = kernel_ops.quantize_encode_sharded(ws, u, bits=BITS,
+                                                          group=g)
+        out["per_shard_wrapper_launches"] = {
+            k: v for k, v in qb.LAUNCHES.items() if v}
+        gate("per_shard_wrappers_one_launch_each",
+             out["per_shard_wrapper_launches"] == {"quantize": 1,
+                                                   "encode": 1})
+        groups = (D_MODEL, D_FF // g, g)
+        plain_q = qb.ref.quantize_groups_ref(
+            w.reshape(groups), u.reshape(groups), BITS).reshape(w.shape)
+        plain_c, plain_s = qb.ref.encode_groups_ref(
+            w.reshape(groups), u.reshape(groups), BITS)
+        kern_q = qb.quantize_grouped(w, u, bits=BITS, group=g)
+        kern_c, kern_s = qb.quantize_encode_grouped(w, u, bits=BITS, group=g)
+        for name, got, wants in (
+                ("quantize", got_q, (kern_q, plain_q)),
+                ("codes", got_c, (kern_c, plain_c.reshape(w.shape))),
+                ("scales", got_s, (kern_s, plain_s.reshape(groups[:2])))):
+            local = got.to_local()
+            gate(f"per_shard_{name}_bit_identical",
+                 got.placements == (Shard(0),)
+                 and all(bits_equal(local, want) for want in wants))
+        del got_q, got_c, got_s, plain_q, plain_c, plain_s, kern_q, kern_c
+        del kern_s, u
+        comp = C.block_quant(BITS, BLOCK, dither="hash", shard_safe=True)
+        applied = comp.apply([seed], ws)
+        gate("shard_safe_dtensor_apply_bit_identical",
+             applied.placements == (Shard(0),)
+             and bits_equal(applied.to_local(), comp.apply([seed], w)))
+        del w, ws, applied
+
+        out.update(gates=gates, seconds_per_round=seconds,
+                   peak_bytes=peaks, launches_per_round=launches,
+                   max_abs_gap=gaps, launches=paths)
+        for name, ok in gates.items():
+            require(ok, f"mesh phase: gate {name} failed")
+        for path, names in (("mesh", ("encode_seeded", "decode_reduce")),
+                            ("two_tier", ("encode_seeded",))):
+            for name in names:
+                require(paths[path].get(name, 0) > 0,
+                        f"mesh phase: kernel {name} was not launched on "
+                        f"the {path} path")
+        out["seconds"] = time.perf_counter() - t0
+        return out
+    finally:
+        dist.destroy_process_group()
 
 
 # ---------------------------------------------------------------------------
@@ -1281,8 +1643,20 @@ def main() -> int:
     slice_out = drive_slice()
     emit(dict(slice_out, card=card))
 
+    _free()
+    mesh_out = mesh_phase()
+    emit(dict(mesh_out, card=card))
+
+    # the quantizer rows count their launches on each FedMM path apart:
+    # the single-device rounds, the mesh runs and the two-tier runs off
+    # the mesh; "launches" is their sum
     for k, entry in kernels.items():
-        entry["launches"] = slice_out["launches"][k]
+        by_path = {"slice": slice_out["launches"][k]}
+        for path, counts in mesh_out["launches"].items():
+            by_path[path] = sum(counts.get(c, 0)
+                                for c in ROW_COUNTS.get(k, (k,)))
+        entry.update(launches=sum(by_path.values()),
+                     launches_by_path=by_path)
     if profile:
         torch.cuda.empty_cache()
         profile_rounds()
@@ -1311,7 +1685,8 @@ def main() -> int:
             ("rwkv6-3b", rs.LAUNCHES, "rwkv_scan", 0)):
         served = serve_model(aid, counter, key, int8_tokens, profile)
         emit(dict(served, card=card))
-        lm_kernels[key]["launches"] = served["launches"]
+        n = served["launches"]
+        lm_kernels[key].update(launches=n, launches_by_path={"serve": n})
     kernels.update(lm_kernels)
     emit({"kernels": list(kernels.values())})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})

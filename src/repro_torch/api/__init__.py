@@ -1,7 +1,8 @@
 """The port's driver API (the counterpart of ``repro.api``)."""
 from .driver import (DriverState, centralized_init, centralized_step,
-                     history_list, init, mean_oracle_diag, resolve_device,
-                     run, step, variates_at_init)
+                     history_list, init, local_rows, mean_oracle_diag,
+                     resolve_device, run, step, tier_boundary,
+                     variates_at_init)
 from .problem import MMProblem, as_problem
 from .schedule import decaying_stepsize, resolve_schedule, schedule_length
 from .spec import FederationSpec, participation_draw

@@ -8,36 +8,61 @@ mask and the mu-weighted reduce, the control-variate updates, and the SA
 server step. ``centralized_step`` is Algorithm 1. ``run`` is a Python loop
 over ``step``.
 
-What this slice covers: one device; ``client_mode`` ``"vmap"`` (the
-oracles of all clients in one ``torch.func.vmap``, then each client's
-encode with its own seeds, stacked into the payload the server decodes)
-and ``"scan"`` (the clients one after another, the aggregate accumulated
-in the iterate's dtype); ``uplink="gather"``; the flat topology. ``mesh``,
-``cohort``, ``sanitize``, ``audit_keys``, faults and the two-tier topology
-raise ``NotImplementedError``.
+Client stage: ``client_mode`` ``"vmap"`` (the oracles of all clients in
+one ``torch.func.vmap``, then each client's encode with its own seeds,
+stacked into the payload the server decodes) or ``"scan"`` (the clients
+one after another, the aggregate accumulated in the iterate's dtype).
+
+Mesh: with ``mesh=`` (a ``torch.distributed.device_mesh.DeviceMesh`` with
+a ``client_axis`` dim) every rank runs the round for its own contiguous
+block of clients: ``x``, ``v``, ``aux``, ``opt`` and ``step`` are
+replicated, ``v_i`` and the client batches hold the rank's rows (rank
+``r`` of the client dim holds clients ``r n / W`` to ``(r + 1) n / W -
+1``). ``uplink="gather"`` gathers the encoded buffers over the client
+dim's process group and every rank runs the single-device tail, bit for
+bit; ``uplink="reduce"`` decodes and reduces each rank's clients locally
+(the fused decode + reduce kernel when the variates are off) and sums
+the float32 partial with one all-reduce. The mesh's device type (NCCL on
+``"cuda"``, gloo on ``"cpu"``) must be the device the caller runs on.
+
+Topology: ``Topology.two_tier(n_edges, reencode=...)`` reduces within
+each edge in float32 (by the stable ``edge_ids``; on a mesh, over the
+client dim of an ``(edge, client)`` mesh), optionally re-encodes each
+edge's partial at the tier boundary, sums over edges and casts once.
+``backbone_bytes`` bills the edge -> root buffers and ``comm_bytes`` is
+``uplink_bytes + backbone_bytes``. ``cohort``, ``sanitize``,
+``audit_keys`` and faults raise ``NotImplementedError``.
 
 Randomness: ``key`` is a ``torch.Generator``. Each round draws the
-participation mask and then one 32-bit seed per client and leaf
-(``participation_draw``). ``active=`` and ``seeds=`` hand in a mask and
-seeds computed elsewhere (the tests pass the reference's draws).
+participation mask, then one 32-bit seed per client and leaf
+(``participation_draw``), then, under two-tier only, one seed per edge
+and leaf for the tier boundary, so that flat trajectories draw what they
+always drew. Every rank of a mesh draws the whole round and takes its
+rows. ``active=``, ``seeds=`` and ``edge_seeds=`` hand in draws computed
+elsewhere (the tests pass the reference's).
 
 Devices: the entry points run on ``device="cuda"`` unless the caller
 passes ``device="cpu"``; with no GPU and no such request they raise.
 """
 from __future__ import annotations
 
+import dataclasses
 import gc
 from typing import Any, NamedTuple, Optional
 
 import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
 
-from ..core.compression import (stack_payloads, verify_payload,
+from ..core.compression import (PackedLeaf, _tree_bytes, leaf_seeds,
+                                stack_payloads, verify_payload,
                                 zero_invalid_rows)
 from ..core.surrogate import (tree_lerp, tree_scale, tree_sq_norm,
                               tree_sq_norm_ew, tree_sub)
 from ..tree import tree_leaves, tree_map
 from .problem import MMProblem, as_problem
 from .schedule import resolve_schedule, schedule_length
+from . import collective
 from .spec import FederationSpec, participation_draw
 
 Pytree = Any
@@ -77,6 +102,11 @@ def _to(tree, dev):
 
 def _take(tree, c: int):
     return tree_map(lambda x: x[c], tree)
+
+
+def _rows(tree, lo: int, hi: int):
+    """Clients ``lo`` to ``hi - 1`` of a client-stacked tree."""
+    return tree_map(lambda x: x[lo:hi], tree)
 
 
 # ---------------------------------------------------------------------------
@@ -161,21 +191,83 @@ def _weighted_reduce(w, q):
     return tree_map(lambda x: _tensordot(w, x).to(x.dtype), q)
 
 
+def _edge_partials(q, w, edge_ids, n_edges: int):
+    """Per-edge mu-weighted partial sums in float32: the within-edge half
+    of the two-tier reduce, grouped by the stable client -> edge
+    assignment ``edge_ids`` (one segment sum per leaf)."""
+    def one(x):
+        wcol = w.to(torch.float32).reshape((-1,) + (1,) * (x.ndim - 1))
+        out = torch.zeros((n_edges,) + tuple(x.shape[1:]),
+                          dtype=torch.float32, device=x.device)
+        return out.index_add_(0, edge_ids.to(x.device),
+                              x.to(torch.float32) * wcol)
+    return tree_map(one, q)
+
+
+def tier_boundary(spec: FederationSpec, edge_parts, edge_seeds, x_ref):
+    """Cross the edge -> root tier: optionally re-encode each edge's
+    partial (``Compressor.reencode`` with that edge's seeds; digests are
+    stamped anew), measure the buffers that cross the backbone, sum over
+    edges and cast once to the iterate's dtype. ``edge_parts``: an
+    ``(n_edges,)``-stacked float32 partial per leaf; ``edge_seeds``:
+    ``(n_edges, n_leaves)``. Returns ``(agg, backbone_bytes)``."""
+    comp = spec.compressor
+    if spec.topology.reencode:
+        payload = stack_payloads([
+            comp.reencode(edge_seeds[e].tolist(), _take(edge_parts, e))
+            for e in range(edge_seeds.shape[0])])
+        backbone_bytes = float(_tree_bytes(payload))
+        edge_parts = comp.decode(payload)
+    else:
+        backbone_bytes = float(_tree_bytes(edge_parts))
+    agg = tree_map(lambda e, x: torch.sum(e, dim=0).to(x.dtype),
+                   edge_parts, x_ref)
+    return agg, backbone_bytes
+
+
+def _map_buffers(fn, payload):
+    """``fn`` on every buffer of a payload tree (codes, scales and digest
+    of each ``PackedLeaf``; raw leaves as they are)."""
+    def leaf(p):
+        if not isinstance(p, PackedLeaf):
+            return fn(p)
+        return dataclasses.replace(
+            p, codes=fn(p.codes), scales=fn(p.scales),
+            check=None if p.check is None else fn(p.check))
+    return tree_map(leaf, payload, is_leaf=lambda x: isinstance(x,
+                                                                PackedLeaf))
+
+
 def _client_stage(problem: MMProblem, spec: FederationSpec, view, x_ref,
-                  client_batches, v_i, seeds, mask, mu, *, client_mode):
-    """The client half of Algorithm 2. Returns ``(agg, v_i_new, cmetrics,
-    wire_bytes_client, n_survive)``: the masked mu-weighted aggregate
-    (iterate dtype), the updated variates, stacked per-client oracle
-    metrics, the measured per-client uplink bytes (None for compressors
-    without a wire format), and the count of active clients whose payload
-    passed verification (``sum(mask)`` without checksums)."""
+                  client_batches, v_i, seeds, mask, mu, *, client_mode,
+                  uplink="gather", mesh=None, client_axis="clients",
+                  rows=None, edge_seeds=None):
+    """The client half of Algorithm 2. ``seeds``, ``mask`` and ``mu`` cover
+    all n clients; ``client_batches`` and ``v_i`` the clients of ``rows``
+    (``(lo, hi)``: the rank's block on a mesh, all n off it). Returns
+    ``(agg, v_i_new, cmetrics, wire_bytes_client, n_survive,
+    collective_bytes, backbone_bytes)``: the masked mu-weighted aggregate
+    (iterate dtype), the updated variates of ``rows``, stacked per-client
+    oracle metrics of all n clients, the measured per-client uplink bytes
+    (None for compressors without a wire format), the count of active
+    clients whose payload passed verification (``sum(mask)`` without
+    checksums), the bytes of the mesh collective's operand (None off the
+    mesh) and the measured edge -> root bytes (None for the flat
+    topology)."""
     p, alpha = spec.participation, spec.alpha
     param_space = spec.aggregation == "parameter"
     use_v = spec.use_variates
     comp = spec.compressor
     use_wire = comp.encode is not None
     verify = use_wire and comp.checksum
-    n_local = mask.shape[0]
+    topo = spec.topology
+    two_tier = topo.is_two_tier
+    n = mask.shape[0]
+    lo, hi = (0, n) if rows is None else rows
+    n_local = hi - lo
+    edge_ids = (torch.as_tensor(topo.edge_ids(n), dtype=torch.int64,
+                                device=mask.device) if two_tier else None)
+    collective_bytes = backbone_bytes = None
 
     def oracle(batch, v_c):
         """One client's oracle (+ optional metrics) and drift."""
@@ -201,10 +293,43 @@ def _client_stage(problem: MMProblem, spec: FederationSpec, view, x_ref,
         m = m.to(x.dtype)
         return x.mul_(m) if use_wire else x * m
 
+    def rows_mask(m, x):
+        return m.reshape((m.shape[0],) + (1,) * (x.ndim - 1))
+
+    def receive(payload, m, own, weights=None):
+        """The server's side of the uplink on a stack of payloads whose
+        clients' mask is ``m``: verify and zero the rows that fail, then
+        decode, mask (non-participating clients send nothing and keep
+        V_i) and update the variates of the stack's rows ``own`` (this
+        rank's clients). With ``weights`` the mask folds into them (it is
+        0.0/1.0) and the decode into the weighted sum: the decoded stack
+        never exists. Returns ``(q, or the float32 sum with weights;
+        v_i_new; the surviving clients' mask)``."""
+        surv = m
+        if verify:
+            ok = verify_payload(payload)
+            payload = zero_invalid_rows(payload, ok)
+            surv = m * ok.to(m.device, torch.float32)
+        if weights is not None:
+            part = comp.decode_reduce(payload, weights * m, fused=True)
+            return part, (), surv
+        q = comp.decode(payload) if use_wire else payload
+        del payload
+        q = tree_map(lambda x: masked(x, rows_mask(m, x)), q)
+        v_new = (_variate_update(v_i, _rows(q, *own), alpha / p) if use_v
+                 else ())
+        return q, v_new, surv
+
     if client_mode == "scan":
         # one client's oracle/quantize transients live at a time; the
-        # aggregate accumulates in the iterate's dtype
-        agg = tree_map(torch.zeros_like, x_ref)
+        # aggregate accumulates in the iterate's dtype (flat) or edge by
+        # edge in float32 (two-tier: the tier boundary casts once)
+        if two_tier:
+            agg = tree_map(lambda x: torch.zeros(
+                (topo.n_edges,) + tuple(x.shape), dtype=torch.float32,
+                device=x.device), x_ref)
+        else:
+            agg = tree_map(torch.zeros_like, x_ref)
         v_i_new = tree_map(torch.empty_like, v_i) if use_v else ()
         cms = []
         n_survive = torch.zeros((), dtype=torch.float32, device=mask.device)
@@ -226,13 +351,22 @@ def _client_stage(problem: MMProblem, spec: FederationSpec, view, x_ref,
             if use_v:
                 tree_map(lambda dst, src: dst[c].copy_(src), v_i_new,
                          _variate_update(v_c, q_c, alpha / p))
-            agg = tree_map(lambda a, x: a + (mu[c] * x).to(a.dtype), agg, q_c)
+            if two_tier:
+                e = int(edge_ids[c])
+                tree_map(lambda a, x: a[e].add_(mu[c] * x.to(torch.float32)),
+                         agg, q_c)
+            else:
+                agg = tree_map(lambda a, x: a + (mu[c] * x).to(a.dtype),
+                               agg, q_c)
             n_survive = n_survive + surv_c
             cms.append(cm)
         cmetrics = tree_map(lambda *xs: torch.stack(xs), *cms)
-        return agg, v_i_new, cmetrics, wire_bytes_client, n_survive
+        if two_tier:
+            agg, backbone_bytes = tier_boundary(spec, agg, edge_seeds, x_ref)
+        return (agg, v_i_new, cmetrics, wire_bytes_client, n_survive,
+                collective_bytes, backbone_bytes)
 
-    # "vmap": every client's oracle in one batched call, then each
+    # "vmap": every local client's oracle in one batched call, then each
     # client's payload with its own seeds, stacked as the server gets it.
     # Encoding client by client gives the batched encode's values without
     # its memory: at model width the streamed hash dither alone holds
@@ -242,30 +376,72 @@ def _client_stage(problem: MMProblem, spec: FederationSpec, view, x_ref,
     else:
         d_stack, cmetrics = torch.func.vmap(
             lambda b: oracle(b, None))(client_batches)
-    parts = [compress(c, _take(d_stack, c)) for c in range(n_local)]
+    parts = [compress(lo + c, _take(d_stack, c)) for c in range(n_local)]
     del d_stack
     payload = (stack_payloads(parts) if use_wire
                else tree_map(lambda *xs: torch.stack(xs), *parts))
     del parts
-    n_survive = torch.sum(mask)
     if use_wire:
         # actual uplink bytes of ONE client, read off the stacked buffers
         wire_bytes_client = comp.encoded_bytes(payload) / n_local
-        if verify:
-            ok = verify_payload(payload)
-            payload = zero_invalid_rows(payload, ok)
-            n_survive = torch.sum(mask * ok.to(mask.device, torch.float32))
-        q = comp.decode(payload)
     else:
         wire_bytes_client = None
-        q = payload
+    dims = (collective.client_dims(topo, client_axis) if mesh is not None
+            else ())
+    if mesh is not None:
+        # the per-client oracle metrics of every client
+        cmetrics = tree_map(lambda x: collective.gather_rows(x, mesh, dims),
+                            cmetrics)
+
+    if mesh is not None and uplink == "reduce":
+        # each rank decodes, masks and mu-reduces its own clients; the
+        # float32 partial crosses the mesh in ONE all-reduce (edge-scoped
+        # under two-tier, then one more across edges) and is cast once
+        mu_l = mu[lo:hi]
+        fused = not use_v and use_wire and comp.decode_reduce is not None
+        part, v_i_new, surv = receive(payload, mask[lo:hi], (0, n_local),
+                                      mu_l if fused else None)
+        del payload
+        if not fused:
+            part = tree_map(lambda x: _tensordot(mu_l, x), part)
+        collective_bytes = float(_tree_bytes(part))
+        part = tree_map(lambda x: collective.sum_over(x, mesh,
+                                                      (client_axis,)), part)
+        if two_tier:
+            e = collective.client_block(mesh, (topo.edge_axis,))[0]
+            if topo.reencode:
+                pay_e = comp.reencode(edge_seeds[e].tolist(), part)
+                edge_bytes = float(_tree_bytes(pay_e))
+                part = comp.decode(pay_e)
+                del pay_e
+            else:
+                edge_bytes = float(_tree_bytes(part))
+            part = tree_map(lambda x: collective.sum_over(
+                x, mesh, (topo.edge_axis,)), part)
+            backbone_bytes = edge_bytes * topo.n_edges
+        n_survive = (collective.sum_over(torch.sum(surv), mesh, dims)
+                     if verify else torch.sum(mask))
+        agg = tree_map(lambda a, x: a.to(x.dtype), part, x_ref)
+        return (agg, v_i_new, cmetrics, wire_bytes_client, n_survive,
+                collective_bytes, backbone_bytes)
+
+    if mesh is not None:
+        # the uplink moves the encoded buffers; every rank then holds the
+        # stack of all n clients in client order and runs the tail below
+        payload = _map_buffers(
+            lambda x: collective.gather_rows(x, mesh, dims), payload)
+        collective_bytes = float(_tree_bytes(payload))
+    q, v_i_new, surv = receive(payload, mask, (lo, hi))
     del payload
-    # non-participating clients send nothing and keep V_i
-    q = tree_map(lambda x: masked(
-        x, mask.reshape((n_local,) + (1,) * (x.ndim - 1))), q)
-    v_i_new = _variate_update(v_i, q, alpha / p) if use_v else ()
-    agg = _weighted_reduce(mu, q)
-    return agg, v_i_new, cmetrics, wire_bytes_client, n_survive
+    n_survive = torch.sum(surv)
+    if two_tier:
+        parts = _edge_partials(q, mu, edge_ids, topo.n_edges)
+        del q
+        agg, backbone_bytes = tier_boundary(spec, parts, edge_seeds, x_ref)
+    else:
+        agg = _weighted_reduce(mu, q)
+    return (agg, v_i_new, cmetrics, wire_bytes_client, n_survive,
+            collective_bytes, backbone_bytes)
 
 
 def _server_apply(problem: MMProblem, spec: FederationSpec,
@@ -342,18 +518,16 @@ def centralized_step(problem: MMProblem, state: DriverState, batch, gamma):
     return state._replace(x=s_new, step=state.step + 1), metrics
 
 
-def _validate(spec: FederationSpec, mesh, client_mode, uplink, sanitize,
-              audit_keys, cohort) -> None:
+def _validate(spec: FederationSpec, mesh, client_axis, client_mode, uplink,
+              sanitize, audit_keys, cohort, dev: torch.device) -> None:
+    """The knobs of a round, checked as the reference's
+    ``_validate_topology`` checks them, plus what the port adds: the mesh
+    is a ``DeviceMesh`` on the device the caller runs on, over NCCL on the
+    GPU and gloo on the CPU."""
     if client_mode not in CLIENT_MODES:
         raise ValueError(f"client_mode={client_mode!r} (want {CLIENT_MODES})")
     if uplink not in UPLINKS:
         raise ValueError(f"uplink={uplink!r} (want {UPLINKS})")
-    if mesh is not None:
-        raise NotImplementedError("mesh= (the multi-GPU uplinks) belongs to "
-                                  "ROADMAP Queue A item 8")
-    if uplink == "reduce":
-        raise ValueError("uplink='reduce' is the cross-mesh partial-reduce "
-                         "collective; it needs mesh=")
     if cohort is not None:
         raise NotImplementedError("cohort= (the scheduler path) belongs to "
                                   "ROADMAP Queue A item 10")
@@ -363,37 +537,112 @@ def _validate(spec: FederationSpec, mesh, client_mode, uplink, sanitize,
     if audit_keys:
         raise NotImplementedError("audit_keys belongs to ROADMAP Queue A "
                                   "item 12")
-    if spec.topology.is_two_tier:
-        raise NotImplementedError("the two-tier topology belongs to ROADMAP "
-                                  "Queue A item 9")
+    if uplink == "reduce" and mesh is None:
+        raise ValueError("uplink='reduce' is the cross-mesh partial-reduce "
+                         "collective; it needs mesh= (without a mesh the "
+                         "vmap path has no collective to fuse)")
+    if mesh is None:
+        return
+    if client_mode != "vmap":
+        raise ValueError("the mesh path runs the batched client stage; "
+                         "client_mode='scan' is sequential — drop mesh= or "
+                         "use 'vmap'")
+    if not isinstance(mesh, DeviceMesh):
+        raise TypeError(f"mesh= takes a torch.distributed.device_mesh."
+                        f"DeviceMesh, got {type(mesh).__name__}")
+    shape = collective.mesh_shape(mesh)
+    if client_axis not in shape:
+        raise ValueError(f"client_axis={client_axis!r} not an axis of "
+                         f"the mesh (axes: {tuple(shape)})")
+    topo = spec.topology
+    if topo.is_two_tier:
+        e_ax = topo.edge_axis
+        if e_ax == client_axis:
+            raise ValueError(
+                f"topology.edge_axis={e_ax!r} collides with client_axis — "
+                f"the two-tier mesh needs distinct (edge, client) axes")
+        if e_ax not in shape:
+            raise ValueError(
+                f"topology.edge_axis={e_ax!r} not an axis of the mesh "
+                f"(axes: {tuple(shape)}) — build a 2-D (edge, client) mesh "
+                f"(launch.mesh.make_edge_mesh)")
+        if shape[e_ax] != topo.n_edges:
+            raise ValueError(
+                f"mesh axis {e_ax!r} has size {shape[e_ax]} but the "
+                f"topology declares n_edges={topo.n_edges} — one mesh row "
+                f"per edge aggregator")
+    if mesh.device_type != dev.type:
+        raise ValueError(f"the mesh lives on {mesh.device_type!r} but the "
+                         f"round runs on {dev.type!r}: build the mesh on the "
+                         f"device the round runs on")
+    want = "nccl" if dev.type == "cuda" else "gloo"
+    for d in collective.client_dims(topo, client_axis):
+        backend = str(dist.get_backend(mesh.get_group(d)))
+        if want not in backend:
+            raise ValueError(f"mesh dim {d!r} runs over {backend!r}; a "
+                             f"{dev.type} mesh runs over {want}")
+    count = 1
+    for d in collective.client_dims(topo, client_axis):
+        count *= shape[d]
+    if spec.n_clients % count:
+        raise ValueError(
+            f"the client-stage leading dim ({spec.n_clients} clients) must "
+            f"divide evenly over the mesh axes "
+            f"{collective.client_dims(topo, client_axis)} (total size "
+            f"{count})")
+
+
+def local_rows(spec: FederationSpec, mesh, client_axis: str = "clients"):
+    """``(lo, hi)``: the clients this rank holds, ``(0, n)`` off a mesh."""
+    n = spec.n_clients
+    if mesh is None:
+        return 0, n
+    b, count = collective.client_block(
+        mesh, collective.client_dims(spec.topology, client_axis))
+    per = n // count
+    return b * per, (b + 1) * per
 
 
 def step(problem: MMProblem, spec: FederationSpec, state: DriverState,
          client_batches, gamma, key: Optional[torch.Generator] = None,
-         active=None, *, seeds=None, device=None, mesh=None,
-         client_axis: str = "clients", client_mode: str = "vmap",
+         active=None, *, seeds=None, edge_seeds=None, device=None,
+         mesh=None, client_axis: str = "clients", client_mode: str = "vmap",
          uplink: str = "gather", drift_metric: bool = True,
          sanitize: bool = False, audit_keys=False, cohort=None):
     """One federated MM round. ``client_batches``: a pytree with a leading
-    client axis of size n. ``key``: the round's ``torch.Generator`` (the
-    participation draw, then per-client, per-leaf seeds). ``active``: an
-    (n,) bool/0-1 mask that overrides the drawn one; ``seeds``: an
-    (n, n_leaves) array of 32-bit dither seeds that overrides the drawn
-    ones. With both given, ``key`` may be None.
+    client axis (all n clients, or the rank's block on a mesh; ``v_i``
+    likewise). ``key``: the round's ``torch.Generator`` (the participation
+    draw, then per-client, per-leaf seeds, then under two-tier per-edge,
+    per-leaf seeds). ``active``: an (n,) bool/0-1 mask that overrides the
+    drawn one; ``seeds``: an (n, n_leaves) array of 32-bit dither seeds;
+    ``edge_seeds``: an (n_edges, n_leaves) array for the tier boundary.
+    With all the draws given, ``key`` may be None.
 
     ``comm_bytes`` is read off the actual encoded buffers for wire-format
-    compressors (the analytic ``payload_bytes`` otherwise)."""
-    del client_axis
+    compressors (the analytic ``payload_bytes`` otherwise), plus the
+    backbone under two-tier. On a mesh, ``collective_payload_bytes`` is
+    the bytes of the collective's operand: the gathered stack
+    (``uplink="gather"``) or the float32 partial (``"reduce"``)."""
     problem = as_problem(problem)
-    _validate(spec, mesh, client_mode, uplink, sanitize, audit_keys, cohort)
     dev = resolve_device(device)
+    _validate(spec, mesh, client_axis, client_mode, uplink, sanitize,
+              audit_keys, cohort, dev)
     n, p = spec.n_clients, spec.participation
     param_space = spec.aggregation == "parameter"
     comp = spec.compressor
     use_wire = comp.encode is not None
+    topo = spec.topology
     state = DriverState(*(_to(f, dev) for f in state))
     client_batches = _to(client_batches, dev)
     mu = spec.client_weights(dev)
+    rows = local_rows(spec, mesh, client_axis)
+    lead = tree_leaves(client_batches)[0].shape[0]
+    if lead != rows[1] - rows[0]:
+        raise ValueError(
+            f"client_batches hold {lead} clients; this rank holds clients "
+            f"{rows[0]}..{rows[1] - 1} of {n}"
+            + (" (on a mesh, pass the rank's own rows)" if mesh is not None
+               else ""))
 
     view = _broadcast_view(problem, spec, state)           # line 4
 
@@ -402,14 +651,26 @@ def step(problem: MMProblem, spec: FederationSpec, state: DriverState,
         drawn, drawn_seeds = participation_draw(key, spec, n_leaves)  # A5
         active = drawn if active is None else active
         seeds = drawn_seeds if seeds is None else seeds
-    elif active is None or seeds is None:
-        raise ValueError("step needs a key, or both active= and seeds=")
+        if topo.is_two_tier:
+            drawn_edge = torch.tensor(
+                [leaf_seeds(key, n_leaves) for _ in range(topo.n_edges)],
+                dtype=torch.int64)
+            edge_seeds = drawn_edge if edge_seeds is None else edge_seeds
+    elif active is None or seeds is None or (topo.is_two_tier
+                                             and edge_seeds is None):
+        raise ValueError("step needs a key, or active= and seeds= (and "
+                         "edge_seeds= under a two-tier topology)")
     seeds = torch.as_tensor(seeds, dtype=torch.int64).reshape(n, n_leaves)
+    if topo.is_two_tier:
+        edge_seeds = torch.as_tensor(edge_seeds, dtype=torch.int64).reshape(
+            topo.n_edges, n_leaves)
     mask = torch.as_tensor(active).to(dev, torch.float32).reshape(n)
 
-    agg, v_i_new, cmetrics, wire_bytes_client, n_survive = _client_stage(
+    (agg, v_i_new, cmetrics, wire_bytes_client, n_survive, collective_bytes,
+     backbone_bytes) = _client_stage(
         problem, spec, view, state.x, client_batches, state.v_i, seeds, mask,
-        mu, client_mode=client_mode)
+        mu, client_mode=client_mode, uplink=uplink, mesh=mesh,
+        client_axis=client_axis, rows=rows, edge_seeds=edge_seeds)
     new_state, h, aux_metrics = _server_apply(
         problem, spec, state, agg, v_i_new, n_survive, gamma)
 
@@ -417,11 +678,15 @@ def step(problem: MMProblem, spec: FederationSpec, state: DriverState,
     per_client = (wire_bytes_client if use_wire
                   else comm["payload_bytes_per_client"])
     uplink_bytes = per_client * torch.sum(mask)
+    backbone = torch.tensor(0.0 if backbone_bytes is None else backbone_bytes,
+                            dtype=torch.float32)
     metrics = {
         "n_active": n_survive,
+        # client -> edge (flat: client -> root)
         "uplink_bytes": uplink_bytes,
-        "backbone_bytes": torch.zeros((), dtype=torch.float32),
-        "comm_bytes": uplink_bytes,
+        # edge -> root: the tier boundary's buffers (0 for flat)
+        "backbone_bytes": backbone,
+        "comm_bytes": uplink_bytes + backbone,
         "omega_eff": torch.tensor(comm["omega_eff"], dtype=torch.float32),
     }
     if drift_metric:
@@ -430,6 +695,9 @@ def step(problem: MMProblem, spec: FederationSpec, state: DriverState,
             tree_sq_norm(drift) / (gamma ** 2)
     if not param_space:
         metrics["h_norm_sq"] = tree_sq_norm_ew(h)
+    if collective_bytes is not None:
+        metrics["collective_payload_bytes"] = torch.tensor(
+            collective_bytes, dtype=torch.float32)
     dup = set(cmetrics) & set(metrics)
     if dup:
         raise ValueError(f"s_bar_metrics keys {sorted(dup)} collide with "
@@ -466,13 +734,20 @@ def run(problem, x0, data, schedule, *, spec: Optional[FederationSpec] = None,
     generator); every round's draws come from it in order.
     ``eval_batch``: records ``loss`` (every ``eval_every`` rounds and the
     last; NaN otherwise). ``track_mirror``/``diag``: the movement
-    diagnostics of the reference."""
+    diagnostics of the reference.
+
+    ``mesh``/``client_axis``/``uplink``: the mesh path of ``step``. The
+    data still come as all n clients' batches and every rank takes its own
+    rows; ``state0``, where given, holds the rank's rows of ``v_i`` (see
+    ``interop.state_for_rank``), and an ``init`` made here is cut to them.
+    ``collective_payload_bytes`` is stacked like every other metric."""
     problem = as_problem(problem)
     dev = resolve_device(device)
     if spec is None:
         return _run_centralized(problem, x0, data, schedule,
                                 n_rounds=n_rounds, state0=state0, device=dev)
-    _validate(spec, mesh, client_mode, uplink, sanitize, audit_keys, None)
+    _validate(spec, mesh, client_axis, client_mode, uplink, sanitize,
+              audit_keys, None, dev)
     if key is None:
         raise ValueError("federated run needs a key (generator or seed)")
     gen = _as_generator(key)
@@ -485,10 +760,12 @@ def run(problem, x0, data, schedule, *, spec: Optional[FederationSpec] = None,
     track_mirror = track_mirror and not param_space
     if eval_batch is not None:
         eval_batch = _to(eval_batch, dev)
+    lo, hi = local_rows(spec, mesh, client_axis)
 
     if state0 is None:
         state0 = init(problem, x0, spec, v0_i=v0_i,
                       init_batches=init_batches, device=dev)
+        state0 = state0._replace(v_i=_rows(state0.v_i, lo, hi))
     diag_name, diag_fn = diag if diag is not None else (None, None)
     state = state0
     theta_prev = problem.T(state.x) if track_mirror else None
@@ -496,8 +773,9 @@ def run(problem, x0, data, schedule, *, spec: Optional[FederationSpec] = None,
     hist = []
     for t in range(n_rounds):
         gamma = gammas[t]
-        batch = data(t, gen) if callable(data) else data
+        batch = _rows(data(t, gen) if callable(data) else data, lo, hi)
         state, m = step(problem, spec, state, batch, gamma, gen, device=dev,
+                        mesh=mesh, client_axis=client_axis,
                         client_mode=client_mode, uplink=uplink)
         if t == 0:
             # torch.func's first vmap of a grad in a process leaves a

@@ -23,8 +23,14 @@ Dispatch. ``quantize_leaf``/``encode_leaf`` send large leaves (at least
 to ``kernels/ops.py``, everything else to the plain oracle of
 ``kernels/ref.py``; both give the same bits for the same draws. On a CUDA
 tensor the kernel route launches the Hopper kernels; on the CPU it runs
-their plain versions. The reference's ``"shard_map"`` route (sharded
-leaves) belongs to the multi-GPU slice and raises here.
+their plain versions. A ``DTensor`` leaf whose local tensor is the whole
+leaf (fully replicated, or on a one-rank mesh) takes these routes on its
+local tensor; a partitioned one whose groups each lie in one rank's block
+takes the reference's ``"shard_map"`` route, one kernel launch per rank
+(``kernels/ops.py:quantize_dequantize_sharded``, ``quantize_encode_
+sharded``) with the dither drawn by global element index, so the result is
+bit-identical to the unsharded leaf's. Other partitioned leaves are
+gathered and take the plain route. The result is placed like the leaf.
 
 Dither sources: ``"hash"`` (the murmur hash of the element index and the
 leaf seed), ``"uniform"`` (``torch.rand`` from a generator seeded by the
@@ -224,7 +230,10 @@ def leaf_checksum(codes, scales, n_batch: int = 0) -> torch.Tensor:
     """The wire digest of one payload leaf's buffers, as int32 holding the
     reference's uint32 bit pattern: position-weighted murmur-mixed sum over
     the codes stream plus the (domain-separated) scales stream. ``n_batch``
-    leading axes are batch dims (one digest per batch row)."""
+    leading axes are batch dims (one digest per batch row). Placed
+    (``DTensor``) buffers are digested whole."""
+    if _is_dtensor(codes):
+        codes, scales = codes.full_tensor(), scales.full_tensor()
     total = (_digest(codes, n_batch, 0)
              + _digest(scales, n_batch, _CKSUM_SCALE_SALT)) & _M32
     return _u32_as_i32(total)
@@ -240,8 +249,13 @@ def verify_leaf(p) -> torch.Tensor:
     over the batch dims for unchecked or raw leaves)."""
     if not isinstance(p, PackedLeaf) or p.check is None:
         return torch.tensor(True)
-    nb = payload_batch_dims(p)
-    return torch.eq(leaf_checksum(p.codes, p.scales, nb), p.check)
+    if payload_batch_dims(p):
+        # one batch row at a time: the digest's int64 temporaries over a
+        # whole client stack would be tens of GB at model width
+        return torch.stack([
+            verify_leaf(dataclasses.replace(p, codes=c, scales=s, check=k))
+            for c, s, k in zip(p.codes, p.scales, p.check)])
+    return torch.eq(leaf_checksum(p.codes, p.scales), p.check)
 
 
 def verify_payload(payload) -> torch.Tensor:
@@ -403,28 +417,117 @@ def _stream_dither(dither: str) -> str:
     return "hash" if dither == "kernel" else dither
 
 
+def _is_dtensor(x) -> bool:
+    return getattr(x, "placements", None) is not None
+
+
+def _whole_on_rank(x) -> bool:
+    """A ``DTensor`` whose local tensor is the whole leaf: fully
+    replicated, or on a one-rank mesh."""
+    return (x.device_mesh.size() == 1
+            or all(pl.is_replicate() for pl in x.placements))
+
+
 def _kernel_route(x: torch.Tensor, g: int, kernel_threshold: int) -> str:
     """One dispatch decision shared by apply and encode (they must agree,
     or decode . encode would not equal apply):
 
-    * ``"kernel"``    - a large leaf whose group the kernel takes;
-    * ``"shard_map"`` - a sharded (DTensor) leaf: the per-shard kernels of
-      the multi-GPU slice, not ported yet;
+    * ``"kernel"``    - a large leaf whose group the kernel takes, held
+      whole on this rank (a tensor, or a replicated or one-rank
+      ``DTensor``);
+    * ``"shard_map"`` - a partitioned ``DTensor`` leaf whose groups each
+      lie in one rank's block: the kernel on each block;
     * ``"plain"``     - everything else (the oracle).
 
     The reference's rule: at least ``kernel_threshold`` elements and a
     128-aligned group."""
     if x.numel() < kernel_threshold or not kernel_group_ok(g):
         return "plain"
-    if getattr(x, "placements", None) is not None:
+    if not _is_dtensor(x) or _whole_on_rank(x):
+        return "kernel"
+    box = kernel_ops.shard_box(tuple(x.shape), x.device_mesh, x.placements)
+    if box is not None and (box[-1].stop - box[-1].start) % g == 0:
         return "shard_map"
-    return "kernel"
+    return "plain"
 
 
-def _no_shard_map():
-    raise NotImplementedError(
-        "sharded leaves (the reference's 'shard_map' route) belong to the "
-        "multi-GPU slice (ROADMAP Queue A item 8)")
+def _hash_dither_box(seed: int, shape, box, device) -> torch.Tensor:
+    """``hash_dither(seed, shape)[box]`` without the whole stream: the hash
+    of each element's global row-major index in the block ``box``."""
+    idx = torch.zeros((), dtype=torch.int64, device=device)
+    stride = 1
+    for d in reversed(range(len(shape))):
+        r = torch.arange(box[d].start, box[d].stop, dtype=torch.int64,
+                         device=device) * stride
+        idx = idx + r.reshape((-1,) + (1,) * (len(shape) - 1 - d))
+        stride *= int(shape[d])
+    return kernel_ref.hash_uniform(idx, seed)
+
+
+def _per_shard(seed, x, g: int, bits: int, dither: str, encode: bool,
+               checksum: bool):
+    """The ``"shard_map"`` route: quantize or encode a partitioned
+    ``DTensor`` with one kernel launch on each rank's block. The in-kernel
+    dither is seeded by position within the block, which is not stable
+    under resharding, so ``dither="kernel"`` streams the hash here."""
+    box = kernel_ops.shard_box(tuple(x.shape), x.device_mesh, x.placements)
+    dev = x.to_local().device
+    dither = _stream_dither(dither)
+    if dither == "hash":
+        u = _hash_dither_box(seed, tuple(x.shape), box, dev)
+    else:
+        u = _make_dither(dither, seed, tuple(x.shape), dev)[box]
+    if not encode:
+        out = kernel_ops.quantize_dequantize_sharded(x, u, bits=bits,
+                                                     group=g)
+        return out.to(x.dtype)
+    codes, scales = kernel_ops.quantize_encode_sharded(x, u, bits=bits,
+                                                       group=g)
+    shape = tuple(x.shape)
+    if bits <= PACK_BITS and shape[-1] % 2 == 0:
+        # every block's width is a multiple of g, hence even: each packs
+        # its own pairs
+        codes = kernel_ops.like_dtensor(pack_nibbles(codes.to_local()),
+                                        codes, shape[:-1]
+                                        + (shape[-1] // 2,))
+    return PackedLeaf(
+        codes=codes, scales=scales, shape=shape, dtype=x.dtype, bits=bits,
+        group=g, mode="shard",
+        check=leaf_checksum(codes, scales) if checksum else None)
+
+
+def _dtensor_leaf(fn, seed, x, kw: dict):
+    """``quantize_leaf``/``encode_leaf`` (``fn``) of a ``DTensor`` leaf,
+    placed like the leaf: the kernel per block on the ``"shard_map"``
+    route, else ``fn`` on the whole leaf (the local tensor where it is
+    whole, else gathered). A payload's codes and scales are placed like
+    the leaf in the shard-safe layout, and whole tensors in the flat
+    one."""
+    from torch.distributed.tensor import distribute_tensor
+    if _whole_on_rank(x):
+        out = fn(seed, x.to_local(), **kw)
+    else:
+        g = (group_size(x.shape[-1], kw["block"]) if kw["shard_safe"]
+             else 1)
+        native = kw["compute"] == "native" and x.dtype != torch.float32
+        if (g >= 2 and not native
+                and _kernel_route(x, g, kw["kernel_threshold"])
+                == "shard_map"):
+            return _per_shard(seed, x, g, kw["bits"], kw["dither"],
+                              fn is encode_leaf, kw.get("checksum", False))
+        out = fn(seed, x.full_tensor(), **kw)
+
+    def place(t):
+        # every rank holds the whole result: each keeps its own block
+        return distribute_tensor(t, x.device_mesh, x.placements,
+                                 src_data_rank=None)
+
+    if isinstance(out, PackedLeaf):
+        if out.mode != "shard":
+            return out
+        return dataclasses.replace(out, codes=place(out.codes),
+                                   scales=place(out.scales))
+    return place(out)
 
 
 def _kernel_view(x: torch.Tensor, g: int) -> torch.Tensor:
@@ -456,6 +559,10 @@ def quantize_leaf(seed, x, bits: int = 8, block: int = 256,
     _check_modes(compute, dither)
     if bits == 0 or x.ndim == 0 or x.numel() == 0:
         return x
+    if _is_dtensor(x):
+        return _dtensor_leaf(quantize_leaf, seed, x, dict(
+            bits=bits, block=block, dither=dither, shard_safe=shard_safe,
+            kernel_threshold=kernel_threshold, compute=compute))
     orig_dtype = x.dtype
     native = compute == "native" and orig_dtype != torch.float32
     dev = x.device
@@ -482,8 +589,6 @@ def quantize_leaf(seed, x, bits: int = 8, block: int = 256,
                 out = kernel_ops.quantize_dequantize_grouped(
                     x2, u.reshape(x2.shape), bits=bits, group=g)
             return out.reshape(x.shape).to(orig_dtype)
-        if route == "shard_map":
-            _no_shard_map()
         u = _make_dither(_stream_dither(dither), seed, x.shape, dev)
         deq = kernel_ref.quantize_groups_ref(
             x.to(torch.float32).reshape(gshape), u.reshape(gshape), bits=bits)
@@ -515,8 +620,6 @@ def quantize_leaf(seed, x, bits: int = 8, block: int = 256,
                 _kernel_view(flat, block).reshape(-1), u, bits=bits,
                 block=block)
     else:
-        if route == "shard_map":
-            _no_shard_map()
         u = _make_dither(_stream_dither(dither), seed, (n + pad,), dev)
         out = kernel_ref.quantize_block_ref(flat, u, bits=bits, block=block)
     return out[:n].reshape(x.shape).to(orig_dtype)
@@ -535,6 +638,11 @@ def encode_leaf(seed, x, bits: int = 8, block: int = 256,
         raise ValueError(f"wire format carries <= 8-bit codes, got {bits}")
     if bits == 0 or x.ndim == 0 or x.numel() == 0:
         return x
+    if _is_dtensor(x):
+        return _dtensor_leaf(encode_leaf, seed, x, dict(
+            bits=bits, block=block, dither=dither, shard_safe=shard_safe,
+            kernel_threshold=kernel_threshold, compute=compute,
+            checksum=checksum))
     orig_dtype = x.dtype
     native = compute == "native" and orig_dtype != torch.float32
     dev = x.device
@@ -559,8 +667,6 @@ def encode_leaf(seed, x, bits: int = 8, block: int = 256,
                 u = _make_dither(dither, seed, x.shape, dev)
                 codes, scales = kernel_ops.quantize_encode_grouped(
                     x2, u.reshape(x2.shape), bits=bits, group=g)
-        elif route == "shard_map":
-            _no_shard_map()
         else:
             u = _make_dither(_stream_dither(dither), seed, x.shape, dev)
             codes, scales = kernel_ref.encode_groups_ref(
@@ -598,8 +704,6 @@ def encode_leaf(seed, x, bits: int = 8, block: int = 256,
                 codes, scales = kernel_ops.quantize_encode_grouped(
                     x2, u.reshape(-1, block), bits=bits, group=block)
         else:
-            if route == "shard_map":
-                _no_shard_map()
             u = _make_dither(_stream_dither(dither), seed, (n + pad,), dev)
             codes, scales = kernel_ref.encode_groups_ref(
                 flat.reshape(-1, block), u.reshape(-1, block), bits=bits)
@@ -616,6 +720,14 @@ def decode_leaf(p):
     axes beyond the recorded layout are batch dims."""
     if not isinstance(p, PackedLeaf):
         return p
+    if _is_dtensor(p.codes):
+        # a shard-safe payload placed like its leaf: each rank decodes its
+        # own block (its groups are whole)
+        codes, scales = p.codes.to_local(), p.scales.to_local()
+        local_shape = tuple(scales.shape[:-1]) + (scales.shape[-1] * p.group,)
+        out = decode_leaf(dataclasses.replace(
+            p, codes=codes, scales=scales, shape=local_shape, check=None))
+        return kernel_ops.like_dtensor(out, p.codes, tuple(p.shape))
     bits, g, shape = p.bits, p.group, tuple(p.shape)
     codes = p.codes
     if codes.dtype == torch.uint8:

@@ -7,8 +7,9 @@ tensors of them on the GPU, or on the device the caller names, and
 arrays (seeds, digests) become int64 tensors, since PyTorch has little
 uint32 arithmetic. bfloat16 arrays (``ml_dtypes.bfloat16``, which
 ``torch.tensor`` cannot take) cross through their 16-bit pattern, bit for
-bit. ``model_params_to_torch`` carries a model's weights across, and
-``ot_state_to_torch`` the FedMM-OT and FedAdam states.
+bit. ``model_params_to_torch`` carries a model's weights across,
+``ot_state_to_torch`` the FedMM-OT and FedAdam states, and
+``state_for_rank`` a whole driver state to one rank of a mesh.
 """
 from __future__ import annotations
 
@@ -59,6 +60,18 @@ def state_to_numpy(state: DriverState) -> DriverState:
     """The port's ``DriverState`` with numpy leaves; the reference's
     ``DriverState(*state_to_numpy(s))`` rebuilds its own."""
     return DriverState(*(to_numpy(f) for f in state))
+
+
+def state_for_rank(state, spec, mesh, client_axis: str = "clients",
+                   device=None) -> DriverState:
+    """A whole ``DriverState`` (the reference's with numpy leaves, or the
+    port's) -> this rank's layout on ``mesh``: the replicated fields
+    whole, the rows of ``v_i`` that the rank's clients own
+    (``api.local_rows``), on ``device`` (the GPU unless asked otherwise)."""
+    from .api.driver import local_rows
+    lo, hi = local_rows(spec, mesh, client_axis)
+    ours = state_to_torch(state, device)
+    return ours._replace(v_i=tree_map(lambda x: x[lo:hi], ours.v_i))
 
 
 def model_params_to_torch(cfg, np_params, device=None) -> Params:

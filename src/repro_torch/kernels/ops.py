@@ -4,9 +4,9 @@ kernel's (R, D) view and call ``quantize_block``; ``flash_attention`` and
 ``rwkv_wkv`` call their kernel modules. Each kernel module launches its
 CUDA kernel for CUDA tensors and takes its plain version on the CPU.
 
-The shard_map wrappers of the reference (``quantize_dequantize_sharded``,
-``quantize_encode_sharded``) belong to the multi-GPU slice and are not
-here yet.
+``quantize_dequantize_sharded`` and ``quantize_encode_sharded`` are the
+counterparts of the reference's shard_map wrappers: one kernel launch on
+each rank's own block of a partitioned ``DTensor`` leaf, no gather.
 """
 from __future__ import annotations
 
@@ -94,6 +94,86 @@ def rwkv_wkv(r, k, v, w, u, chunk: int = 64):
     walks time in one pass."""
     _tpu_tiles_at_default(chunk=chunk)
     return rs.rwkv_scan(r, k, v, w, u)
+
+
+def shard_box(shape, mesh, placements):
+    """The slices of a leaf of ``shape`` that this rank holds under
+    ``placements`` on ``mesh`` (mesh dims in order, each splitting its
+    tensor dim evenly, as ``DTensor`` shards), or None where a split is
+    uneven or a placement is not ``Shard``/``Replicate``."""
+    coord = mesh.get_coordinate()
+    start, length = [0] * len(shape), [int(s) for s in shape]
+    for i, pl in enumerate(placements):
+        if pl.is_replicate():
+            continue
+        if not pl.is_shard():
+            return None
+        d = pl.dim % len(shape)
+        m = int(mesh.mesh.shape[i])
+        if length[d] % m:
+            return None
+        length[d] //= m
+        start[d] += int(coord[i]) * length[d]
+    return tuple(slice(a, a + n) for a, n in zip(start, length))
+
+
+def _contiguous_stride(shape) -> tuple:
+    stride, acc = [], 1
+    for s in reversed(tuple(shape)):
+        stride.append(acc)
+        acc *= int(s)
+    return tuple(reversed(stride))
+
+
+def like_dtensor(local, x, shape):
+    """A ``DTensor`` of global ``shape`` with ``x``'s mesh and placements
+    whose block on this rank is ``local``."""
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(local, x.device_mesh, x.placements,
+                              run_check=False, shape=torch.Size(shape),
+                              stride=_contiguous_stride(shape))
+
+
+def _aligned(t):
+    """``t`` itself, or a contiguous copy where the kernel's 16-byte vector
+    loads could not read it."""
+    if t.is_contiguous() and t.data_ptr() % 16 == 0:
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
+
+
+def _local_rows(x, u, group: int):
+    xl = x.to_local()
+    x2 = _aligned(rows_view(xl.to(torch.float32), group))
+    return xl, x2, _aligned(u.reshape(x2.shape))
+
+
+def quantize_dequantize_sharded(x, u, bits: int = 8, group: int = 256):
+    """Grouped quantize -> dequantize of a partitioned ``DTensor`` leaf:
+    each rank runs the grouped kernel once on its own block (its local
+    leading dims collapsed to rows). ``u``: the dither of this rank's
+    elements, drawn by their GLOBAL index (``shard_box``), so the result is
+    bit-identical to the unsharded kernel. Returns a ``DTensor`` placed
+    like ``x``. Every group must lie inside one block (``group`` divides
+    the block's last dim)."""
+    xl, x2, u2 = _local_rows(x, u, group)
+    out = quantize_dequantize_grouped(x2, u2, bits=bits, group=group)
+    return like_dtensor(out.reshape(xl.shape), x, tuple(x.shape))
+
+
+def quantize_encode_sharded(x, u, bits: int = 8, group: int = 256):
+    """Wire encode of a partitioned ``DTensor`` leaf, one kernel launch per
+    rank on its own block: ``(codes int8 shaped like x, scales float32
+    of shape x.shape[:-1] + (D // group,))``, both ``DTensor``s placed like
+    ``x`` (the scales' last dim splits as the leaf's does, since the group
+    divides each block's width). ``u`` as in
+    ``quantize_dequantize_sharded``."""
+    xl, x2, u2 = _local_rows(x, u, group)
+    codes, scales = quantize_encode_grouped(x2, u2, bits=bits, group=group)
+    shape = tuple(x.shape)
+    return (like_dtensor(codes.reshape(xl.shape), x, shape),
+            like_dtensor(scales.reshape(tuple(xl.shape[:-1]) + (-1,)), x,
+                  shape[:-1] + (shape[-1] // group,)))
 
 
 def rows_view(x, group: int):

@@ -1,0 +1,83 @@
+"""Device meshes for the federated driver (the counterpart of
+``repro/launch/mesh.py``): the 2-D ``(edge, client)`` mesh of the two-tier
+topology and the cohort capacity of a mesh.
+
+A mesh here is a ``torch.distributed.device_mesh.DeviceMesh`` over the
+ranks of the default process group, which the caller starts
+(``torch.distributed.init_process_group`` with its address, world size and
+rank). Each named dim has its own process group (``mesh.get_group(name)``),
+which is what the driver's collectives run over. Importing this module
+touches no process group.
+"""
+from __future__ import annotations
+
+import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
+
+from ..api.collective import mesh_shape
+from ..api.driver import resolve_device
+
+
+def make_edge_mesh(n_edges: int, clients_per_edge: int = None, *,
+                   edge_axis: str = "edge", client_axis: str = "client",
+                   device=None) -> DeviceMesh:
+    """A 2-D ``(edge, client)`` mesh for two-tier aggregation over the
+    first ``n_edges * clients_per_edge`` ranks, on the GPU unless
+    ``device="cpu"``.
+
+    Rank ``e * clients_per_edge + c`` sits at ``(e, c)`` and hosts client
+    block ``e * clients_per_edge + c``, so each edge owns a contiguous
+    block of the client axis: the edge-major order ``Topology.edge_ids``
+    assigns. A reduce over ``client_axis`` then sums within each edge and
+    a reduce over ``edge_axis`` across edges."""
+    if not dist.is_initialized():
+        raise RuntimeError("make_edge_mesh needs a started process group "
+                           "(torch.distributed.init_process_group with its "
+                           "address, world size and rank)")
+    world = dist.get_world_size()
+    if n_edges < 1:
+        raise ValueError(f"n_edges must be >= 1, got {n_edges}")
+    if clients_per_edge is None:
+        if world % n_edges:
+            raise ValueError(
+                f"{world} ranks do not split over n_edges={n_edges}; pass "
+                f"clients_per_edge explicitly")
+        clients_per_edge = world // n_edges
+    if clients_per_edge < 1:
+        raise ValueError(
+            f"clients_per_edge must be >= 1, got {clients_per_edge}")
+    if edge_axis == client_axis:
+        raise ValueError(
+            f"edge_axis and client_axis must differ, both {edge_axis!r}")
+    n = n_edges * clients_per_edge
+    if world < n:
+        raise ValueError(
+            f"two-tier mesh ({n_edges} edges x {clients_per_edge} clients) "
+            f"needs {n} devices (ranks), have {world}")
+    grid = torch.arange(n).reshape(n_edges, clients_per_edge)
+    return DeviceMesh(resolve_device(device).type, grid,
+                      mesh_dim_names=(edge_axis, client_axis))
+
+
+def cohort_capacity(mesh: DeviceMesh, client_axis="clients",
+                    per_device: int = 1) -> int:
+    """The cohort size to stream through ``mesh``: one client slot per rank
+    on the client dim times ``per_device``. ``client_axis`` may be a tuple
+    of dim names (the two-tier ``("edge", "client")`` layout); the capacity
+    is then the product of their sizes times ``per_device``."""
+    axes = (client_axis,) if isinstance(client_axis, str) \
+        else tuple(client_axis)
+    if not axes:
+        raise ValueError("client_axis must name at least one mesh axis")
+    shape = mesh_shape(mesh)
+    for ax in axes:
+        if ax not in shape:
+            raise ValueError(f"client_axis={ax!r} not an axis of "
+                             f"the mesh (axes: {tuple(shape)})")
+    if per_device < 1:
+        raise ValueError(f"per_device must be >= 1, got {per_device}")
+    cap = per_device
+    for ax in axes:
+        cap *= shape[ax]
+    return cap

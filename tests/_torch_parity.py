@@ -26,6 +26,15 @@ def client_seeds(quant_keys, n_leaves: int) -> np.ndarray:
                     dtype=np.int64)
 
 
+def edge_seeds(k_round, n_edges: int, n_leaves: int = 1) -> np.ndarray:
+    """(n_edges, n_leaves) tier-boundary seeds of a reference round (its
+    private edge-key lane), as the port's ``step(edge_seeds=)`` takes
+    them."""
+    from repro.api.driver import _edge_keys
+    return np.array([leaf_seeds(k, n_leaves)
+                     for k in _edge_keys(k_round, n_edges)], dtype=np.int64)
+
+
 def round_draws(key, jspec, n_leaves: int):
     """One round of the reference ``run``'s host key chain: returns the
     next key, the round key, the round's minibatch key, the participation

@@ -327,7 +327,8 @@ def test_step_rejects_what_is_not_ported():
     st = tapi.init(tp, torch.zeros(6), tspec, device="cpu")
     b = to_torch((np.asarray(Xs), np.asarray(ys)))
     g = torch.Generator().manual_seed(0)
-    for kw, err in ((dict(mesh=object()), NotImplementedError),
+    for kw, err in ((dict(mesh=object()), TypeError),
+                    (dict(mesh=object(), client_mode="scan"), ValueError),
                     (dict(cohort=object()), NotImplementedError),
                     (dict(sanitize=True), NotImplementedError),
                     (dict(audit_keys=True), NotImplementedError),
@@ -339,8 +340,11 @@ def test_step_rejects_what_is_not_ported():
         tapi.step(tp, tspec, st, b, 0.1, None, device="cpu")
     two = tapi.FederationSpec(n_clients=4,
                               topology=tapi.Topology.two_tier(2))
-    with pytest.raises(NotImplementedError):
-        tapi.step(tp, two, st, b, 0.1, g, device="cpu")
+    with pytest.raises(TypeError):
+        tapi.step(tp, two, st, b, 0.1, g, device="cpu", mesh=object())
+    # off the mesh the two-tier round runs and bills its backbone
+    _, m = tapi.step(tp, two, st, b, 0.1, g, device="cpu")
+    assert float(m["backbone_bytes"]) == 2 * 6 * 4
     with pytest.raises(NotImplementedError):
         tapi.FederationSpec(n_clients=4, faults=object())
     assert JTopology.two_tier(2).edge_ids(4).tolist() == \
