@@ -18,7 +18,13 @@ entry points at full width and checks what comes out:
    NCCL, a CUDA ``DeviceMesh``, ``uplink="gather"`` and ``"reduce"``,
    the two-tier topology off and on a 1 x 1 ``(edge, client)`` mesh,
    the per-shard quantizer wrappers on a ``DTensor``), which runs the
-   fused decode + reduce kernel inside every reduce round;
+   fused decode + reduce kernel inside every reduce round; then the same
+   workload through the cohort scheduler (the ``sched`` phase:
+   ``repro_torch.sched.CohortScheduler`` in sync and async mode at cohort
+   sizes 16 and 4, a population of 256 clients, the fault axis, a kill
+   and ``resume()``, the reduce uplink on the mesh and the two-tier
+   topology), which runs the encode kernel in every cohort and the fused
+   decode + reduce in every cohort of a reduce uplink;
 2. serving (``repro_torch.launch.serve.serve``: prefill, then greedy
    decode with the ring-buffer KV cache) of phi3-medium-14b (40 layers,
    bf16, the flash-attention kernel in every prefill layer; then the
@@ -894,6 +900,444 @@ def mesh_phase():
 
 
 # ---------------------------------------------------------------------------
+# the sched phase: the cohort scheduler, the fault axis and resume
+# ---------------------------------------------------------------------------
+
+SCHED_ROUNDS = 3
+SCHED_POPULATION = 256
+
+
+def sched_phase():
+    """Phase 1's workload (in-kernel dither) through
+    ``repro_torch.sched.CohortScheduler``. Each run is timed with the host
+    clock around ``run`` ending in a synchronise, its peak read after a
+    reset, its kernel launches counted from 0 (the scheduler's runs only:
+    the ``api.run`` runs that gates compare with are left out). Gates
+    (each raises):
+
+    - sync, C = 16 (one full cohort), variates zero: bit for bit the
+      port's ``api.run`` with the same seed (x, v, the arena against
+      ``v_i``, every metric);
+    - sync, C = 4: round 1 in lockstep with the C = 16 run's round 1
+      (rtol 1e-5 / atol 1e-6); ``n_active`` and the bytes equal to the
+      C = 16 run's in every round of the free run, whose gap is reported;
+      peak at most half the C = 16 peak;
+    - async with the defaults, C = 4: bit for bit the sync C = 4 run;
+      pipelined (``max_inflight`` 8, ``buffer_cohorts`` 2, ``max_staleness``
+      2, ``staleness.polynomial(0.5)``, 4 updates): staleness at most 2,
+      finite;
+    - a population of 256 clients, C = 16, variates off, 2 rounds, each
+      cohort's data made on demand from its clients' stable seeds: peak
+      within 5% of a 16-client run of the same kind;
+    - faults (``checksum=True``, dropout 0.125, corrupt 0.125, cohort_fail
+      0.25, 2 retries), C = 4: ``n_active`` and the billed bytes as the
+      draws say, every flagged row and no other failing verification,
+      finite; zero-probability faults bit for bit ``faults=None``; each
+      corrupt kind at probability 1 caught in every row;
+    - kill at round 2 of 4 (variates off, sync, C = 4) and ``resume()``:
+      bit for bit the uninterrupted run;
+    - the reduce uplink on a one-rank NCCL mesh, variates off, C = 8: one
+      ``qb_decode_reduce`` a cohort a round, within rtol 1e-5 / atol 1e-6
+      of the gather scheduler off the mesh (stepped in lockstep; the free
+      runs' gap reported);
+    - two-tier (4 edges of 4 clients), re-encoded, C = 4, 2 rounds: the
+      backbone exactly 4 x 93,202,208 bytes a round; with C = 16, bit for
+      bit the port's two-tier ``api.run``.
+    Returns the phase's record."""
+    import shutil
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch import api
+    from repro_torch.api import driver as driver_mod
+    from repro_torch.core import compression as C
+    from repro_torch.core.quadratic import quadratic_for_objective
+    from repro_torch.faults import FaultSpec, ServerKilled
+    from repro_torch.kernels import quantize_block as qb
+    from repro_torch.sched import ClientPopulation, CohortScheduler, staleness
+    from repro_torch.sched import scheduler as sched_mod
+    from repro_torch.tree import tree_leaves, tree_map
+
+    device, sync = "cuda", torch.cuda.synchronize
+    t_phase = time.perf_counter()
+    out = {"phase": "sched", "rounds": SCHED_ROUNDS, "clients": N_CLIENTS}
+    xs, ys = make_workload()
+    problem = api.as_problem(quadratic_for_objective(loss_fn, rho=RHO))
+    x0 = {"w": torch.zeros((D_MODEL, D_FF), device=device),
+          "b": torch.zeros((D_FF,), device=device)}
+    n_leaves = len(tree_leaves(x0))
+    gates, seconds, peaks, launches, gaps = {}, {}, {}, {}, {}
+    sched_counts = {}
+
+    def gate(name, ok):
+        gates[name] = gates.get(name, True) and bool(ok)
+
+    def spec_for(variates="zero", checksum=False, faults=None, n=N_CLIENTS,
+                 edges=None, **kw):
+        topo = ({} if edges is None else
+                {"topology": api.Topology.two_tier(edges, reencode=True)})
+        return api.FederationSpec(
+            n_clients=n, participation=PARTICIPATION,
+            alpha=0.0 if variates == "off" else ALPHA, variates=variates,
+            compressor=C.block_quant(BITS, BLOCK, dither="kernel",
+                                     checksum=checksum),
+            faults=faults, **topo, **kw)
+
+    def data_fn(t, gen, ids):
+        idx = torch.as_tensor(ids, device=device)
+        return xs[idx], ys[idx]
+
+    def host(tree):
+        return tree_map(lambda t: t.cpu(), tree)
+
+    def timed(name, fn, rounds, count=True):
+        """Run ``fn`` (a scheduler or api.run call), host-clocked to a
+        synchronise, its peak after a reset; with ``count`` its quantizer
+        launches go to the sched path."""
+        _free()
+        qb.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        sync()
+        t = time.perf_counter()
+        res = fn()
+        sync()
+        seconds[name] = (time.perf_counter() - t) / rounds
+        peaks[name] = torch.cuda.max_memory_allocated()
+        counts = {k: v for k, v in qb.LAUNCHES.items() if v}
+        launches[name] = counts
+        if count:
+            for k, v in counts.items():
+                sched_counts[k] = sched_counts.get(k, 0) + v
+        return res
+
+    def sched_run(name, spec, cohort_size, rounds=SCHED_ROUNDS, mesh=None,
+                  uplink="gather", data=data_fn, **kw):
+        sched = CohortScheduler(problem, spec, cohort_size=cohort_size,
+                                mesh=mesh, uplink=uplink, device=device)
+        st, pop, hist = timed(name, lambda: sched.run(
+            x0, data, GAMMA, key=SEED, n_rounds=rounds, **kw), rounds)
+        return host(st), pop, hist
+
+    def same_bits(a, b):
+        return _trees_bits_equal(host(a), host(b))
+
+    def metrics_equal(h, g, keys):
+        return all(torch.equal(h[k], g[k]) for k in keys)
+
+    # -- 1. one full cohort: bit for bit the port's api.run -----------------
+    spec = spec_for()
+    st_r, h_r = timed("api_run_c16", lambda: api.run(
+        problem, x0, (xs, ys), GAMMA, spec=spec, key=SEED,
+        n_rounds=SCHED_ROUNDS, device=device), SCHED_ROUNDS, count=False)
+    st_r = host(st_r)
+    st16, pop16, h16 = sched_run("sync_c16", spec, N_CLIENTS)
+    gate("c16_bit_identical_to_api_run",
+         same_bits(tuple(st_r)[:2], tuple(st16)[:2])
+         and same_bits(st_r.v_i, pop16.variates())
+         and metrics_equal(h_r, h16, h_r))
+    del st_r, pop16
+
+    # -- 2. C = 4: round 1 in lockstep, the free run's accounting -----------
+    one16 = sched_run("sync_c16_round1", spec, N_CLIENTS, rounds=1)
+    one4 = sched_run("sync_c4_round1", spec, 4, rounds=1)
+    ok, gaps["c4_vs_c16_round1"] = _compare(
+        (one4[0].x, one4[0].v, one4[1].variates()),
+        (one16[0].x, one16[0].v, one16[1].variates()), 1e-5, 1e-6)
+    gate("c4_round1_lockstep_allclose", ok)
+    del one16, one4
+    st4, pop4, h4 = sched_run("sync_c4", spec, 4)
+    gate("c4_counts_equal_c16", metrics_equal(
+        h4, h16, ("n_active", "uplink_bytes", "comm_bytes")))
+    gaps["c4_vs_c16_free"] = _compare((st4.x, st4.v), (st16.x, st16.v),
+                                      1e-5, 1e-6)[1]
+    gate("c4_peak_at_most_half_c16",
+         peaks["sync_c4"] <= 0.5 * peaks["sync_c16"])
+    del st16
+
+    # -- 3. async: the defaults are sync; a pipelined window is bounded -----
+    st_a, pop_a, h_a = sched_run("async_c4", spec, 4, mode="async")
+    gate("async_defaults_bit_identical_to_sync",
+         same_bits(tuple(st4)[:2], tuple(st_a)[:2])
+         and same_bits(pop4.variates(), pop_a.variates())
+         and metrics_equal(h4, h_a, h4))
+    del st_a, pop_a, pop4, st4
+    spec_p = spec_for(max_staleness=2,
+                      staleness_weight=staleness.polynomial(0.5))
+    st_p, _, h_p = sched_run("async_c4_pipelined", spec_p, 4, rounds=4,
+                             mode="async", max_inflight=8, buffer_cohorts=2)
+    out["pipelined_staleness_max"] = h_p["staleness_max"].tolist()
+    gate("pipelined_staleness_bounded",
+         float(h_p["staleness_max"].max()) <= 2.0
+         and all(bool(torch.isfinite(t).all()) for t in tree_leaves(st_p.x)))
+    del st_p
+
+    # -- 4. 256 clients at C = 16, data made from the clients' seeds --------
+    _free()
+    gen = torch.Generator(device=device).manual_seed(SEED + 11)
+    w_star = torch.randn((D_MODEL, D_FF), generator=gen,
+                         device=device) / D_MODEL ** 0.5
+
+    def on_demand(pop):
+        def make(t, chain, ids):
+            xb, yb = [], []
+            for g in pop.client_generators(ids, device=device):
+                x = torch.randn((BATCH, D_MODEL), generator=g, device=device)
+                b = torch.randn((1, D_FF), generator=g, device=device)
+                y = x @ w_star + b
+                y += 0.1 * torch.randn(y.shape, generator=g, device=device)
+                xb.append(x)
+                yb.append(y)
+            return torch.stack(xb), torch.stack(yb)
+        return make
+
+    for n in (N_CLIENTS, SCHED_POPULATION):
+        spec_n = spec_for("off", n=n)
+        pop = ClientPopulation(spec_n, x0, device=device)
+        st_n, pop, h_n = sched_run(f"population_{n}_c16", spec_n, N_CLIENTS,
+                                   rounds=2, population=pop,
+                                   data=on_demand(pop))
+        gate(f"population_{n}_finite",
+             all(bool(torch.isfinite(t).all()) for t in tree_leaves(st_n.x))
+             and int(pop.participation_counts.sum()) == int(
+                 h_n["n_active"].sum()))
+        del st_n, pop
+    del w_star
+    gate("population_256_peak_within_5pct",
+         peaks[f"population_{SCHED_POPULATION}_c16"]
+         <= 1.05 * peaks[f"population_{N_CLIENTS}_c16"])
+    # what api.run would stack for 256 clients: the f32 drift stack alone
+    # (one iterate per client), which one 80 GB card cannot hold
+    iterate_bytes = (D_MODEL * D_FF + D_FF) * 4
+    out["stacked_256_drift_bytes"] = SCHED_POPULATION * iterate_bytes
+
+    # -- 5. faults ------------------------------------------------------------
+    fs = FaultSpec(dropout=0.125, corrupt=0.125, cohort_fail=0.25,
+                   max_retries=2)
+    spec_f = spec_for(checksum=True, faults=fs)
+    per_client = spec_f.compressor.payload_bytes(x0)
+    out["checksummed_payload_bytes_per_client"] = per_client
+    k_cohorts = N_CLIENTS // 4
+    # the scheduler's own draws, made again: data_fn takes nothing from the
+    # chain (key=SEED, a CPU generator), so each round's mask is the next
+    # participation draw; the fault lanes are seeded by (SEED, round)
+    gen_d = torch.Generator().manual_seed(SEED)
+    drawn = []
+    for t in range(SCHED_ROUNDS):
+        active, _ = api.participation_draw(gen_d, spec_f, n_leaves)
+        drop, corr = fs.client_draw(SEED, t, N_CLIENTS)
+        fail_u, _ = fs.cohort_draw(SEED, t, k_cohorts)
+        drawn.append({"active": active, "drop": drop, "corrupt": corr,
+                      "fail_u": fail_u})
+    verdicts = []
+    real_corrupt, real_verify = driver_mod.corrupt_payload, \
+        driver_mod.verify_payload
+    last_flags = []
+
+    def spy_corrupt(payload, flags, kind):
+        last_flags.append(torch.as_tensor(flags).cpu())
+        return real_corrupt(payload, flags, kind)
+
+    def spy_verify(payload):
+        ok = real_verify(payload)
+        flags = last_flags.pop() if last_flags else None
+        verdicts.append((flags, ok.cpu()))
+        return ok
+
+    driver_mod.corrupt_payload, driver_mod.verify_payload = \
+        spy_corrupt, spy_verify
+    try:
+        st_f, pop_f, h_f = sched_run("faults_c4", spec_f, 4)
+        flagged = [(f, ok) for f, ok in verdicts]
+        gate("faults_flagged_rows_and_only_they_fail",
+             len(flagged) == SCHED_ROUNDS * k_cohorts
+             and all(f is not None and torch.equal(ok, ~f)
+                     for f, ok in flagged))
+        out["faults_rows_flagged"] = int(sum(int(f.sum())
+                                             for f, _ in flagged))
+        # each corrupt kind at probability one: every row caught
+        for kind in ("flip", "truncate", "scales"):
+            verdicts.clear()
+            spec_k = spec_for(checksum=True, faults=FaultSpec(
+                corrupt=1.0, corrupt_kind=kind))
+            st_k, _, h_k = sched_run(f"corrupt_all_{kind}", spec_k, 4,
+                                     rounds=1)
+            gate(f"corrupt_all_{kind}_caught",
+                 float(h_k["n_active"][0]) == 0.0
+                 and all(not bool(ok.any()) for _, ok in verdicts)
+                 and all(bool(torch.isfinite(t).all())
+                         for t in tree_leaves(st_k.x)))
+            del st_k
+    finally:
+        driver_mod.corrupt_payload, driver_mod.verify_payload = \
+            real_corrupt, real_verify
+    exp_active, exp_bytes, exp_retries, exp_abandoned = [], [], [], []
+    for t, d in enumerate(drawn):
+        sent = d["active"] & ~d["drop"]
+        counted, billed, retries, abandoned = 0, 0, 0, 0
+        for c in range(k_cohorts):
+            rows = slice(4 * c, 4 * c + 4)
+            fails = 0
+            while fails < 3 and float(d["fail_u"][c, fails]) < 0.25:
+                fails += 1
+            n_sent = int(sent[rows].sum())
+            retries += fails
+            if fails == 3:
+                abandoned += 1
+                billed += 3 * n_sent
+                continue
+            billed += (fails + 1) * n_sent
+            counted += int((sent & ~d["corrupt"])[rows].sum())
+        exp_active.append(counted)
+        exp_bytes.append(billed * per_client)
+        exp_retries.append(retries)
+        exp_abandoned.append(abandoned)
+    out.update(faults_n_active=h_f["n_active"].tolist(),
+               faults_expected_n_active=exp_active,
+               faults_uplink_bytes=h_f["uplink_bytes"].tolist(),
+               faults_expected_uplink_bytes=exp_bytes,
+               faults_retries=h_f["fault_retries"].tolist(),
+               faults_abandoned=h_f["fault_abandoned"].tolist())
+    # the draws reach every fault path: drops, corrupt rows and retries
+    gate("faults_draws_exercised",
+         out["faults_rows_flagged"] > 0 and sum(exp_retries) > 0
+         and any(bool(d["drop"].any()) for d in drawn))
+    gate("faults_n_active_as_drawn",
+         h_f["n_active"].tolist() == [float(v) for v in exp_active])
+    # the exact bill, rounded once to the metric's float32
+    gate("faults_bytes_as_drawn", torch.equal(
+        h_f["uplink_bytes"], torch.tensor(exp_bytes, dtype=torch.float32)))
+    gate("faults_retries_as_drawn",
+         h_f["fault_retries"].tolist() == [float(v) for v in exp_retries]
+         and h_f["fault_abandoned"].tolist() == [float(v)
+                                                 for v in exp_abandoned])
+    gate("faults_finite",
+         all(bool(torch.isfinite(t).all())
+             for t in tree_leaves((st_f.x, st_f.v))))
+    del st_f, pop_f
+    zero = [sched_run(f"zero_prob_{name}", spec_for(checksum=True, faults=f),
+                      4, rounds=1)
+            for name, f in (("none", None), ("faultspec", FaultSpec()))]
+    gate("zero_prob_faults_bit_identical",
+         same_bits(tuple(zero[0][0])[:2], tuple(zero[1][0])[:2])
+         and same_bits(zero[0][1].variates(), zero[1][1].variates())
+         and metrics_equal(zero[0][2], zero[1][2], zero[0][2]))
+    del zero
+
+    # -- 6. kill at round 2 of 4, then resume ----------------------------------
+    spec_off = spec_for("off")
+    st_u, _, h_u = sched_run("uninterrupted_c4", spec_off, 4, rounds=4)
+    writes = []
+    real_save = sched_mod.save_snapshot
+
+    def timed_save(path, snap):
+        t = time.perf_counter()
+        real_save(path, snap)
+        writes.append((os.path.getsize(path), time.perf_counter() - t))
+
+    build_dir = Path(__file__).resolve().parent / "build"
+    build_dir.mkdir(exist_ok=True)
+    ck = tempfile.mkdtemp(prefix="sched_ck_", dir=str(build_dir))
+    sched_mod.save_snapshot = timed_save
+    try:
+        spec_kill = spec_for("off", faults=FaultSpec(kill_round=2))
+        killer = CohortScheduler(problem, spec_kill, cohort_size=4,
+                                 device=device)
+        killed_at = None
+        try:
+            timed("killed_c4", lambda: killer.run(
+                x0, data_fn, GAMMA, key=SEED, n_rounds=4,
+                checkpoint_dir=ck), 2)
+        except ServerKilled as e:
+            killed_at = e.round_index
+        st_k, _, h_k = timed("resumed_c4", lambda: killer.resume(
+            x0, data_fn, GAMMA, checkpoint_dir=ck, n_rounds=4), 2)
+    finally:
+        sched_mod.save_snapshot = real_save
+        shutil.rmtree(ck, ignore_errors=True)
+    gate("killed_at_round_2", killed_at == 2)
+    gate("resume_bit_identical", same_bits(tuple(st_u)[:1], tuple(st_k)[:1])
+         and metrics_equal(h_u, h_k, h_u))
+    out.update(snapshot_bytes=[b for b, _ in writes],
+               snapshot_write_seconds=[s for _, s in writes])
+    del st_u, st_k
+
+    # -- 7. the reduce uplink on a one-rank NCCL mesh, C = 8 --------------------
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl",
+                            init_method=f"tcp://localhost:{_free_port()}",
+                            rank=0, world_size=1)
+    try:
+        probe = torch.ones(1, device=device)
+        dist.all_reduce(probe)        # NCCL's set-up, outside the timings
+        sync()
+        mesh = init_device_mesh("cuda", (1,), mesh_dim_names=("clients",))
+        st_g, _, h_g = sched_run("gather_c8_off", spec_off, 8)
+        st_m, _, h_m = sched_run("mesh_reduce_c8_off", spec_off, 8,
+                                 mesh=mesh, uplink="reduce")
+        gate("mesh_reduce_one_decode_reduce_per_cohort_round",
+             launches["mesh_reduce_c8_off"].get("decode_reduce", 0)
+             == SCHED_ROUNDS * 2)
+        gate("mesh_reduce_counts_equal_gather",
+             metrics_equal(h_m, h_g, ("n_active", "comm_bytes")))
+        gaps["free_mesh_reduce_vs_gather"] = _compare(st_m.x, st_g.x, 1e-5,
+                                                      1e-6)[1]
+        del st_g, st_m
+        # lockstep: each round from one state with the same draws
+        gen_l = torch.Generator().manual_seed(SEED + 17)
+        state = None
+        for t in range(SCHED_ROUNDS):
+            active, seeds = api.participation_draw(gen_l, spec_off, n_leaves)
+            d = {"active": active, "seeds": seeds}
+            kw = dict(rounds=1, draws=lambda i, d=d: d, state0=state)
+            ref = sched_run(f"gather_c8_off_lockstep_{t}", spec_off, 8, **kw)
+            got = sched_run(f"mesh_reduce_c8_off_lockstep_{t}", spec_off, 8,
+                            mesh=mesh, uplink="reduce", **kw)
+            ok, gap = _compare(got[0].x, ref[0].x, 1e-5, 1e-6)
+            gate("mesh_reduce_lockstep_allclose", ok)
+            gaps.setdefault("lockstep_mesh_reduce_vs_gather", []).append(gap)
+            state = ref[0]
+            del ref, got
+    finally:
+        dist.destroy_process_group()
+
+    # -- 8. two-tier, 4 edges of 4 clients, re-encoded ---------------------------
+    spec_t = spec_for(checksum=True, edges=4)
+    per_edge = C._tree_bytes(spec_t.compressor.encode([0, 0], x0))
+    st_t4, _, h_t4 = sched_run("two_tier_c4", spec_t, 4, rounds=2)
+    gate("two_tier_backbone_bytes", torch.equal(
+        h_t4["backbone_bytes"], torch.full((2,), 4.0 * per_edge))
+        and per_edge == 93_202_208)
+    del st_t4
+    st_tr, h_tr = timed("two_tier_api_run", lambda: api.run(
+        problem, x0, (xs, ys), GAMMA, spec=spec_t, key=SEED, n_rounds=2,
+        device=device), 2, count=False)
+    st_tr = host(st_tr)
+    st_t16, pop_t16, h_t16 = sched_run("two_tier_c16", spec_t, N_CLIENTS,
+                                       rounds=2)
+    gate("two_tier_c16_bit_identical_to_api_run",
+         same_bits(tuple(st_tr)[:2], tuple(st_t16)[:2])
+         and same_bits(st_tr.v_i, pop_t16.variates())
+         and metrics_equal(h_tr, h_t16, h_tr))
+    out["two_tier_backbone_bytes"] = h_t4["backbone_bytes"].tolist()
+    del st_tr, st_t16, pop_t16, xs, ys
+
+    out.update(gates=gates, seconds_per_round=seconds, peak_bytes=peaks,
+               launches_per_run=launches, max_abs_gap=gaps,
+               launches={"sched": sched_counts})
+    failed = [name for name, ok in gates.items() if not ok]
+    if failed:
+        emit(dict(out, card=card_line()))
+    require(not failed, f"sched phase: gates {failed} failed")
+    for name in ("encode_seeded", "decode_reduce"):
+        require(sched_counts.get(name, 0) > 0,
+                f"sched phase: kernel {name} was not launched on the "
+                f"sched path")
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 4: the LM kernels against their plain versions, at the path's shapes
 # ---------------------------------------------------------------------------
 
@@ -1646,13 +2090,17 @@ def main() -> int:
     _free()
     mesh_out = mesh_phase()
     emit(dict(mesh_out, card=card))
+    _free()
+    sched_out = sched_phase()
+    emit(dict(sched_out, card=card))
 
     # the quantizer rows count their launches on each FedMM path apart:
-    # the single-device rounds, the mesh runs and the two-tier runs off
-    # the mesh; "launches" is their sum
+    # the single-device rounds, the mesh runs, the two-tier runs off the
+    # mesh and the scheduler's runs; "launches" is their sum
     for k, entry in kernels.items():
         by_path = {"slice": slice_out["launches"][k]}
-        for path, counts in mesh_out["launches"].items():
+        for path, counts in {**mesh_out["launches"],
+                             **sched_out["launches"]}.items():
             by_path[path] = sum(counts.get(c, 0)
                                 for c in ROW_COUNTS.get(k, (k,)))
         entry.update(launches=sum(by_path.values()),

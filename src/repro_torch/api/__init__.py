@@ -1,5 +1,6 @@
 """The port's driver API (the counterpart of ``repro.api``)."""
-from .driver import (DriverState, centralized_init, centralized_step,
+from .driver import (CohortPartial, CohortSlice, DriverState, apply_partial,
+                     centralized_init, centralized_step, finalize_partial,
                      history_list, init, local_rows, mean_oracle_diag,
                      resolve_device, run, step, tier_boundary,
                      variates_at_init)

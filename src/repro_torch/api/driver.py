@@ -30,8 +30,20 @@ each edge in float32 (by the stable ``edge_ids``; on a mesh, over the
 client dim of an ``(edge, client)`` mesh), optionally re-encodes each
 edge's partial at the tier boundary, sums over edges and casts once.
 ``backbone_bytes`` bills the edge -> root buffers and ``comm_bytes`` is
-``uplink_bytes + backbone_bytes``. ``cohort``, ``sanitize``,
-``audit_keys`` and faults raise ``NotImplementedError``.
+``uplink_bytes + backbone_bytes``.
+
+Cohorts (the scheduler path, ``repro_torch.sched``): ``step(cohort=
+CohortSlice(...))`` runs the client stage on one cohort of C clients and
+returns its ``CohortPartial`` without touching the iterate; the scheduler
+sums partials and lands them with ``apply_partial`` (two-tier partials
+cross the tier boundary at landing, ``finalize_partial``).
+
+Faults (``spec.faults``, a ``repro_torch.faults.FaultSpec``): a round
+draws ``(drop, corrupt)`` from the fault lanes (or takes ``fault_draws=``),
+folds ``drop`` into the participation mask and damages the ``corrupt``
+clients' payloads before verification, which drops them from the round.
+``sanitize`` and ``audit_keys`` raise ``NotImplementedError`` (ROADMAP
+Queue A item 12).
 
 Randomness: ``key`` is a ``torch.Generator``. Each round draws the
 participation mask, then one 32-bit seed per client and leaf
@@ -50,6 +62,7 @@ import dataclasses
 import gc
 from typing import Any, NamedTuple, Optional
 
+import numpy as np
 import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
@@ -57,6 +70,7 @@ from torch.distributed.device_mesh import DeviceMesh
 from ..core.compression import (PackedLeaf, _tree_bytes, leaf_seeds,
                                 stack_payloads, verify_payload,
                                 zero_invalid_rows)
+from ..faults.injector import corrupt_payload
 from ..core.surrogate import (tree_lerp, tree_scale, tree_sq_norm,
                               tree_sq_norm_ew, tree_sub)
 from ..tree import tree_leaves, tree_map
@@ -83,6 +97,50 @@ class DriverState(NamedTuple):
     aux: Pytree
     opt: Pytree
     step: torch.Tensor
+
+
+class CohortSlice(NamedTuple):
+    """The per-round inputs of ONE cohort of C clients, gathered by a
+    scheduler from its population arena; every leading dim is C.
+
+    ``mask``: the participation mask of the cohort's clients (0.0 also on
+    padded slots of a ragged last cohort); ``mu``: the matching slice of
+    the global client weights, not renormalized (pads zeroed), so summing
+    cohort partials gives the population's weighted reduce; ``seeds``:
+    the clients' (C, n_leaves) dither seeds from the round's draw;
+    ``v_i``: the cohort's control variates (on a mesh, the rank's rows;
+    ``()`` when the variates are off); ``valid``: 1.0 on real clients, 0.0
+    on padded slots (None: all real); ``corrupt``: bool flags of clients
+    whose payload is damaged in flight (needs a checksummed wire format);
+    ``edge_ids``: the cohort's slice of the population's stable client ->
+    edge map (required under two-tier)."""
+    mask: Any
+    mu: Any
+    seeds: Any
+    v_i: Pytree = ()
+    valid: Any = None
+    corrupt: Any = None
+    edge_ids: Any = None
+
+
+class CohortPartial(NamedTuple):
+    """One cohort's contribution to a round: ``agg``, the masked
+    mu-weighted partial aggregate (iterate dtype; under two-tier the
+    ``(n_edges,)``-stacked float32 per-edge partial, finalized at landing
+    by ``finalize_partial``), the updated variates (``v_i``), the count of
+    clients that survived verification, the billed uplink bytes (every
+    active real client that sent; float64, exact, so that a scheduler's
+    sum over cohorts rounds to ``step``'s float32 bill once, at landing,
+    where the reference sums float32 bills and rounds at model width),
+    the per-client oracle metrics summed
+    over the cohort's real clients (divide by n after summing cohorts),
+    and the mesh collective's operand bytes (None off the mesh)."""
+    agg: Pytree
+    v_i: Pytree
+    n_active: torch.Tensor
+    comm_bytes: torch.Tensor
+    metric_sums: dict
+    collective_payload_bytes: Optional[float]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -225,6 +283,20 @@ def tier_boundary(spec: FederationSpec, edge_parts, edge_seeds, x_ref):
     return agg, backbone_bytes
 
 
+def finalize_partial(spec: FederationSpec, agg, edge_seeds, x_ref):
+    """The scheduler's landing-time tier crossing: a two-tier partial
+    accumulates as ``(n_edges,)``-stacked float32 edge sums (re-encoding
+    is nonlinear, so cohorts sum before the boundary) and crosses here
+    with the landing round's edge seeds. A flat partial passes through
+    with no backbone bytes. Returns ``(agg, backbone_bytes)``."""
+    topo = spec.topology
+    if not topo.is_two_tier:
+        return agg, 0.0
+    edge_seeds = torch.as_tensor(edge_seeds, dtype=torch.int64).reshape(
+        topo.n_edges, -1)
+    return tier_boundary(spec, agg, edge_seeds, x_ref)
+
+
 def _map_buffers(fn, payload):
     """``fn`` on every buffer of a payload tree (codes, scales and digest
     of each ``PackedLeaf``; raw leaves as they are)."""
@@ -241,7 +313,8 @@ def _map_buffers(fn, payload):
 def _client_stage(problem: MMProblem, spec: FederationSpec, view, x_ref,
                   client_batches, v_i, seeds, mask, mu, *, client_mode,
                   uplink="gather", mesh=None, client_axis="clients",
-                  rows=None, edge_seeds=None):
+                  rows=None, edge_seeds=None, edge_ids=None, corrupt=None,
+                  tier_finalize=True):
     """The client half of Algorithm 2. ``seeds``, ``mask`` and ``mu`` cover
     all n clients; ``client_batches`` and ``v_i`` the clients of ``rows``
     (``(lo, hi)``: the rank's block on a mesh, all n off it). Returns
@@ -253,20 +326,34 @@ def _client_stage(problem: MMProblem, spec: FederationSpec, view, x_ref,
     clients whose payload passed verification (``sum(mask)`` without
     checksums), the bytes of the mesh collective's operand (None off the
     mesh) and the measured edge -> root bytes (None for the flat
-    topology)."""
+    topology).
+
+    ``edge_ids``: the stage's clients' edges (default: the spec's stable
+    map of all n). ``corrupt``: bool flags of clients whose payload is
+    damaged (``spec.faults.corrupt_kind``) between encode and verify.
+    ``tier_finalize=False`` (the cohort path) returns the two-tier
+    ``(n_edges,)`` float32 per-edge partial instead of crossing the
+    boundary."""
     p, alpha = spec.participation, spec.alpha
     param_space = spec.aggregation == "parameter"
     use_v = spec.use_variates
     comp = spec.compressor
     use_wire = comp.encode is not None
     verify = use_wire and comp.checksum
+    if corrupt is not None and not verify:
+        raise ValueError("corrupt flags need a checksummed wire-format "
+                         "compressor (block_quant(..., checksum=True)) — "
+                         "undetected damage would poison the aggregate")
+    kind = spec.faults.corrupt_kind if spec.faults is not None else "flip"
     topo = spec.topology
     two_tier = topo.is_two_tier
     n = mask.shape[0]
     lo, hi = (0, n) if rows is None else rows
     n_local = hi - lo
-    edge_ids = (torch.as_tensor(topo.edge_ids(n), dtype=torch.int64,
-                                device=mask.device) if two_tier else None)
+    if two_tier:
+        edge_ids = torch.as_tensor(
+            topo.edge_ids(n) if edge_ids is None else edge_ids,
+            dtype=torch.int64).to(mask.device)
     collective_bytes = backbone_bytes = None
 
     def oracle(batch, v_c):
@@ -296,7 +383,16 @@ def _client_stage(problem: MMProblem, spec: FederationSpec, view, x_ref,
     def rows_mask(m, x):
         return m.reshape((m.shape[0],) + (1,) * (x.ndim - 1))
 
-    def receive(payload, m, own, weights=None):
+    def checked(payload, flags):
+        """Damage the flagged rows (if any), then verify: returns the
+        payload with failing rows zeroed and the ok flags. Zeroing comes
+        before decode: NaN scale bits times a zero weight are still NaN."""
+        if flags is not None:
+            payload = corrupt_payload(payload, flags, kind)
+        ok = verify_payload(payload)
+        return zero_invalid_rows(payload, ok), ok
+
+    def receive(payload, m, own, weights=None, flags=None):
         """The server's side of the uplink on a stack of payloads whose
         clients' mask is ``m``: verify and zero the rows that fail, then
         decode, mask (non-participating clients send nothing and keep
@@ -307,8 +403,7 @@ def _client_stage(problem: MMProblem, spec: FederationSpec, view, x_ref,
         v_i_new; the surviving clients' mask)``."""
         surv = m
         if verify:
-            ok = verify_payload(payload)
-            payload = zero_invalid_rows(payload, ok)
+            payload, ok = checked(payload, flags)
             surv = m * ok.to(m.device, torch.float32)
         if weights is not None:
             part = comp.decode_reduce(payload, weights * m, fused=True)
@@ -343,8 +438,8 @@ def _client_stage(problem: MMProblem, spec: FederationSpec, view, x_ref,
             if use_wire:
                 wire_bytes_client = float(comp.encoded_bytes(payload_c))
             if verify:
-                ok = verify_payload(payload_c)
-                payload_c = zero_invalid_rows(payload_c, ok)
+                payload_c, ok = checked(
+                    payload_c, None if corrupt is None else corrupt[c])
                 surv_c = mask[c] * ok.to(mask.device, torch.float32)
             q_c = comp.decode(payload_c) if use_wire else payload_c
             q_c = tree_map(lambda x: masked(x, mask[c]), q_c)
@@ -361,7 +456,7 @@ def _client_stage(problem: MMProblem, spec: FederationSpec, view, x_ref,
             n_survive = n_survive + surv_c
             cms.append(cm)
         cmetrics = tree_map(lambda *xs: torch.stack(xs), *cms)
-        if two_tier:
+        if two_tier and tier_finalize:
             agg, backbone_bytes = tier_boundary(spec, agg, edge_seeds, x_ref)
         return (agg, v_i_new, cmetrics, wire_bytes_client, n_survive,
                 collective_bytes, backbone_bytes)
@@ -394,13 +489,19 @@ def _client_stage(problem: MMProblem, spec: FederationSpec, view, x_ref,
                             cmetrics)
 
     if mesh is not None and uplink == "reduce":
+        if two_tier and not tier_finalize:
+            raise ValueError(
+                "two-tier uplink='reduce' groups clients by mesh position; "
+                "a streamed cohort's edge membership is data-dependent — "
+                "use uplink='gather' under the scheduler")
         # each rank decodes, masks and mu-reduces its own clients; the
         # float32 partial crosses the mesh in ONE all-reduce (edge-scoped
         # under two-tier, then one more across edges) and is cast once
         mu_l = mu[lo:hi]
         fused = not use_v and use_wire and comp.decode_reduce is not None
-        part, v_i_new, surv = receive(payload, mask[lo:hi], (0, n_local),
-                                      mu_l if fused else None)
+        part, v_i_new, surv = receive(
+            payload, mask[lo:hi], (0, n_local), mu_l if fused else None,
+            None if corrupt is None else corrupt[lo:hi])
         del payload
         if not fused:
             part = tree_map(lambda x: _tensordot(mu_l, x), part)
@@ -431,13 +532,14 @@ def _client_stage(problem: MMProblem, spec: FederationSpec, view, x_ref,
         payload = _map_buffers(
             lambda x: collective.gather_rows(x, mesh, dims), payload)
         collective_bytes = float(_tree_bytes(payload))
-    q, v_i_new, surv = receive(payload, mask, (lo, hi))
+    q, v_i_new, surv = receive(payload, mask, (lo, hi), flags=corrupt)
     del payload
     n_survive = torch.sum(surv)
     if two_tier:
-        parts = _edge_partials(q, mu, edge_ids, topo.n_edges)
+        agg = _edge_partials(q, mu, edge_ids, topo.n_edges)
         del q
-        agg, backbone_bytes = tier_boundary(spec, parts, edge_seeds, x_ref)
+        if tier_finalize:
+            agg, backbone_bytes = tier_boundary(spec, agg, edge_seeds, x_ref)
     else:
         agg = _weighted_reduce(mu, q)
     return (agg, v_i_new, cmetrics, wire_bytes_client, n_survive,
@@ -519,18 +621,18 @@ def centralized_step(problem: MMProblem, state: DriverState, batch, gamma):
 
 
 def _validate(spec: FederationSpec, mesh, client_axis, client_mode, uplink,
-              sanitize, audit_keys, cohort, dev: torch.device) -> None:
+              sanitize, audit_keys, dev: torch.device,
+              n_stage: Optional[int] = None) -> None:
     """The knobs of a round, checked as the reference's
     ``_validate_topology`` checks them, plus what the port adds: the mesh
     is a ``DeviceMesh`` on the device the caller runs on, over NCCL on the
-    GPU and gloo on the CPU."""
+    GPU and gloo on the CPU. ``n_stage``: the client stage's leading count
+    that must divide over the mesh (the cohort size on the cohort path;
+    by default ``spec.n_clients``)."""
     if client_mode not in CLIENT_MODES:
         raise ValueError(f"client_mode={client_mode!r} (want {CLIENT_MODES})")
     if uplink not in UPLINKS:
         raise ValueError(f"uplink={uplink!r} (want {UPLINKS})")
-    if cohort is not None:
-        raise NotImplementedError("cohort= (the scheduler path) belongs to "
-                                  "ROADMAP Queue A item 10")
     if sanitize:
         raise NotImplementedError("sanitize=True belongs to ROADMAP Queue A "
                                   "item 12")
@@ -584,17 +686,21 @@ def _validate(spec: FederationSpec, mesh, client_axis, client_mode, uplink,
     count = 1
     for d in collective.client_dims(topo, client_axis):
         count *= shape[d]
-    if spec.n_clients % count:
+    n_stage = spec.n_clients if n_stage is None else n_stage
+    if n_stage % count:
         raise ValueError(
-            f"the client-stage leading dim ({spec.n_clients} clients) must "
+            f"the client-stage leading dim ({n_stage} clients) must "
             f"divide evenly over the mesh axes "
             f"{collective.client_dims(topo, client_axis)} (total size "
             f"{count})")
 
 
-def local_rows(spec: FederationSpec, mesh, client_axis: str = "clients"):
-    """``(lo, hi)``: the clients this rank holds, ``(0, n)`` off a mesh."""
-    n = spec.n_clients
+def local_rows(spec: FederationSpec, mesh, client_axis: str = "clients",
+               n: Optional[int] = None):
+    """``(lo, hi)``: the clients this rank holds of a stage of ``n``
+    (default ``spec.n_clients``; a cohort's C on the cohort path), ``(0,
+    n)`` off a mesh."""
+    n = spec.n_clients if n is None else n
     if mesh is None:
         return 0, n
     b, count = collective.client_block(
@@ -608,15 +714,25 @@ def step(problem: MMProblem, spec: FederationSpec, state: DriverState,
          active=None, *, seeds=None, edge_seeds=None, device=None,
          mesh=None, client_axis: str = "clients", client_mode: str = "vmap",
          uplink: str = "gather", drift_metric: bool = True,
-         sanitize: bool = False, audit_keys=False, cohort=None):
+         sanitize: bool = False, audit_keys=False,
+         cohort: Optional[CohortSlice] = None, fault_draws=None):
     """One federated MM round. ``client_batches``: a pytree with a leading
     client axis (all n clients, or the rank's block on a mesh; ``v_i``
     likewise). ``key``: the round's ``torch.Generator`` (the participation
     draw, then per-client, per-leaf seeds, then under two-tier per-edge,
     per-leaf seeds). ``active``: an (n,) bool/0-1 mask that overrides the
     drawn one; ``seeds``: an (n, n_leaves) array of 32-bit dither seeds;
-    ``edge_seeds``: an (n_edges, n_leaves) array for the tier boundary.
-    With all the draws given, ``key`` may be None.
+    ``edge_seeds``: an (n_edges, n_leaves) array for the tier boundary;
+    ``fault_draws``: ``(drop, corrupt)``, two (n,) bool arrays that
+    override the fault lanes' draw (``spec.faults.client_draw`` from
+    ``key.initial_seed()`` and ``state.step``). With all the draws given,
+    ``key`` may be None.
+
+    ``cohort``: the scheduler path. The client stage runs on the
+    ``CohortSlice``'s clients (``client_batches`` holds their C rows, the
+    rank's rows on a mesh) and the ``CohortPartial`` comes back without a
+    server update; ``gamma``, ``key``, ``active`` and the draws are not
+    used.
 
     ``comm_bytes`` is read off the actual encoded buffers for wire-format
     compressors (the analytic ``payload_bytes`` otherwise), plus the
@@ -625,10 +741,14 @@ def step(problem: MMProblem, spec: FederationSpec, state: DriverState,
     (``uplink="gather"``) or the float32 partial (``"reduce"``)."""
     problem = as_problem(problem)
     dev = resolve_device(device)
+    if cohort is not None:
+        return _cohort_partial(problem, spec, state, client_batches, cohort,
+                               dev=dev, mesh=mesh, client_axis=client_axis,
+                               client_mode=client_mode, uplink=uplink,
+                               sanitize=sanitize, audit_keys=audit_keys)
     _validate(spec, mesh, client_axis, client_mode, uplink, sanitize,
-              audit_keys, cohort, dev)
+              audit_keys, dev)
     n, p = spec.n_clients, spec.participation
-    param_space = spec.aggregation == "parameter"
     comp = spec.compressor
     use_wire = comp.encode is not None
     topo = spec.topology
@@ -664,15 +784,36 @@ def step(problem: MMProblem, spec: FederationSpec, state: DriverState,
     if topo.is_two_tier:
         edge_seeds = torch.as_tensor(edge_seeds, dtype=torch.int64).reshape(
             topo.n_edges, n_leaves)
+    corrupt = None
+    faults = spec.faults
+    if faults is not None and faults.any_injection:
+        # private lanes: the participation and seed draws above are
+        # untouched, so a zero-probability FaultSpec changes nothing
+        if fault_draws is None:
+            if key is None:
+                raise ValueError("a round with fault injection needs a key, "
+                                 "or fault_draws=(drop, corrupt)")
+            fault_draws = faults.client_draw(key.initial_seed(),
+                                             int(state.step), n)
+        drop, corr = (d.to("cpu", torch.bool).reshape(n)
+                      if isinstance(d, torch.Tensor)
+                      else torch.tensor(np.asarray(d, dtype=bool)).reshape(n)
+                      for d in fault_draws)
+        # a dropped client's uplink never arrives: it leaves the mask
+        active = torch.as_tensor(active).to(torch.bool).reshape(n).cpu() \
+            & ~drop
+        corrupt = corr if faults.corrupt > 0.0 else None
     mask = torch.as_tensor(active).to(dev, torch.float32).reshape(n)
 
     (agg, v_i_new, cmetrics, wire_bytes_client, n_survive, collective_bytes,
      backbone_bytes) = _client_stage(
         problem, spec, view, state.x, client_batches, state.v_i, seeds, mask,
         mu, client_mode=client_mode, uplink=uplink, mesh=mesh,
-        client_axis=client_axis, rows=rows, edge_seeds=edge_seeds)
-    new_state, h, aux_metrics = _server_apply(
-        problem, spec, state, agg, v_i_new, n_survive, gamma)
+        client_axis=client_axis, rows=rows, edge_seeds=edge_seeds,
+        corrupt=corrupt)
+    new_state, metrics = apply_partial(
+        problem, spec, state._replace(v_i=v_i_new), agg, n_survive, gamma,
+        drift_metric=drift_metric, device=dev)
 
     comm = comp.round_metrics(state.x, p=p)
     per_client = (wire_bytes_client if use_wire
@@ -680,13 +821,133 @@ def step(problem: MMProblem, spec: FederationSpec, state: DriverState,
     uplink_bytes = per_client * torch.sum(mask)
     backbone = torch.tensor(0.0 if backbone_bytes is None else backbone_bytes,
                             dtype=torch.float32)
+    # client -> edge (flat: client -> root); edge -> root: the tier
+    # boundary's buffers (0 for flat)
+    metrics.update(uplink_bytes=uplink_bytes, backbone_bytes=backbone,
+                   comm_bytes=uplink_bytes + backbone)
+    if collective_bytes is not None:
+        metrics["collective_payload_bytes"] = torch.tensor(
+            collective_bytes, dtype=torch.float32)
+    _merge_client_metrics(metrics, {k: torch.mean(v, dim=0)
+                                   for k, v in cmetrics.items()})
+    return new_state, metrics
+
+
+def _merge_client_metrics(metrics: dict, client_means: dict) -> None:
+    """Add the problem's per-client metric means (``s_bar_metrics``) to a
+    round's driver metrics, in place; a key that both report raises."""
+    dup = set(client_means) & set(metrics)
+    if dup:
+        raise ValueError(f"s_bar_metrics keys {sorted(dup)} collide with "
+                         f"driver metrics — rename them in the problem")
+    metrics.update(client_means)
+
+
+def _cohort_partial(problem: MMProblem, spec: FederationSpec,
+                    state: DriverState, client_batches, cohort: CohortSlice,
+                    *, dev, mesh, client_axis, client_mode, uplink,
+                    sanitize, audit_keys) -> CohortPartial:
+    """``step(..., cohort=...)``: the client stage on one cohort, returning
+    its ``CohortPartial``. The cohort's ``mu`` is the un-renormalized slice
+    of the global weights, so the partials of a population's cohorts sum to
+    the full weighted reduce (bit for bit for one full cohort, to
+    re-association otherwise)."""
+    if not isinstance(cohort, CohortSlice):
+        raise TypeError(f"cohort= takes a CohortSlice, got "
+                        f"{type(cohort).__name__}")
+    topo = spec.topology
+    if topo.is_two_tier and cohort.edge_ids is None:
+        raise ValueError(
+            "a two-tier topology needs CohortSlice.edge_ids — the cohort's "
+            "slice of the population's stable client -> edge assignment "
+            "(ClientPopulation.edge_ids)")
+    mask = torch.as_tensor(cohort.mask).to(dev, torch.float32)
+    if mask.ndim != 1:
+        raise ValueError(f"CohortSlice.mask must be 1-D, got shape "
+                         f"{tuple(mask.shape)}")
+    c = mask.shape[0]
+    for name in ("mu", "seeds", "valid", "corrupt", "edge_ids"):
+        arr = getattr(cohort, name)
+        if arr is not None and tuple(torch.as_tensor(arr).shape)[:1] != (c,):
+            raise ValueError(
+                f"CohortSlice.{name} has leading dim "
+                f"{tuple(torch.as_tensor(arr).shape)[:1]} != cohort size {c}")
+    _validate(spec, mesh, client_axis, client_mode, uplink, sanitize,
+              audit_keys, dev, n_stage=c)
+    comp = spec.compressor
+    use_wire = comp.encode is not None
+    state = DriverState(*(_to(f, dev) for f in state))
+    client_batches = _to(client_batches, dev)
+    rows = local_rows(spec, mesh, client_axis, n=c)
+    lead = tree_leaves(client_batches)[0].shape[0]
+    if lead != rows[1] - rows[0]:
+        raise ValueError(
+            f"client_batches hold {lead} clients; this rank holds clients "
+            f"{rows[0]}..{rows[1] - 1} of the cohort's {c}")
+    n_leaves = len(tree_leaves(state.x))
+    seeds = torch.as_tensor(cohort.seeds, dtype=torch.int64).reshape(
+        c, n_leaves)
+    mu = torch.as_tensor(cohort.mu, dtype=torch.float32).to(dev)
+    corrupt = (None if cohort.corrupt is None
+               else torch.as_tensor(cohort.corrupt, dtype=torch.bool))
+
+    view = _broadcast_view(problem, spec, state)           # line 4
+    (agg, v_i_new, cmetrics, wire_bytes_client, n_survive, collective_bytes,
+     _) = _client_stage(
+        problem, spec, view, state.x, client_batches, _to(cohort.v_i, dev),
+        seeds, mask, mu, client_mode=client_mode, uplink=uplink, mesh=mesh,
+        client_axis=client_axis, rows=rows, edge_ids=cohort.edge_ids,
+        corrupt=corrupt, tier_finalize=False)
+    comm = comp.round_metrics(state.x, p=spec.participation)
+    per_client = (wire_bytes_client if use_wire
+                  else comm["payload_bytes_per_client"])
+    if cohort.valid is None:
+        metric_sums = {k: torch.sum(v, dim=0) for k, v in cmetrics.items()}
+    else:
+        # padded slots repeat a real client's batch: their metrics do not
+        # count toward the population's means
+        valid = torch.as_tensor(cohort.valid).to(dev, torch.float32)
+        metric_sums = {
+            k: torch.sum(v * valid.reshape((c,) + (1,) * (v.ndim - 1))
+                         .to(v.dtype), dim=0)
+            for k, v in cmetrics.items()}
+    return CohortPartial(
+        # the clients that survived verification (sum(mask) without
+        # checksums): a corrupt client is not counted...
+        agg=agg, v_i=v_i_new, n_active=n_survive,
+        # ...but billed, since it used the wire; the mask is 0.0 on padded
+        # slots, so a ragged cohort bills its real active clients only.
+        # float32(per_client) x count is exact in float64: the landing's one
+        # cast gives step's float32 product, whatever the cohorting
+        comm_bytes=(torch.tensor(per_client, dtype=torch.float32).double()
+                    * torch.sum(mask).double()),
+        metric_sums=metric_sums,
+        collective_payload_bytes=collective_bytes)
+
+
+def apply_partial(problem, spec: FederationSpec, state: DriverState, agg,
+                  n_active, gamma, *, drift_metric: bool = True,
+                  device=None):
+    """Land an aggregate: the server half of a round. ``step`` lands its
+    client stage's aggregate here; a scheduler lands the sum of its
+    (possibly staleness-weighted) ``CohortPartial.agg`` terms.
+    ``n_active``: the surviving clients' count (the 'realized'
+    normalization divides by it). ``state.v_i`` passes through: cohort
+    variates live in the scheduler's population arena. Returns
+    ``(new_state, metrics)`` with the server-side metrics (``n_active``,
+    ``omega_eff``, ``e_s``/``e_p``, ``h_norm_sq``, aux); the caller adds
+    the byte counts and ``_merge_client_metrics``."""
+    problem = as_problem(problem)
+    dev = resolve_device(device)
+    state = DriverState(*(_to(f, dev) for f in state))
+    agg = _to(agg, dev)
+    param_space = spec.aggregation == "parameter"
+    n_active = torch.as_tensor(n_active, dtype=torch.float32)
+    new_state, h, aux_metrics = _server_apply(
+        problem, spec, state, agg, state.v_i, n_active, gamma)
+    comm = spec.compressor.round_metrics(state.x, p=spec.participation)
     metrics = {
-        "n_active": n_survive,
-        # client -> edge (flat: client -> root)
-        "uplink_bytes": uplink_bytes,
-        # edge -> root: the tier boundary's buffers (0 for flat)
-        "backbone_bytes": backbone,
-        "comm_bytes": uplink_bytes + backbone,
+        "n_active": n_active,
         "omega_eff": torch.tensor(comm["omega_eff"], dtype=torch.float32),
     }
     if drift_metric:
@@ -695,14 +956,6 @@ def step(problem: MMProblem, spec: FederationSpec, state: DriverState,
             tree_sq_norm(drift) / (gamma ** 2)
     if not param_space:
         metrics["h_norm_sq"] = tree_sq_norm_ew(h)
-    if collective_bytes is not None:
-        metrics["collective_payload_bytes"] = torch.tensor(
-            collective_bytes, dtype=torch.float32)
-    dup = set(cmetrics) & set(metrics)
-    if dup:
-        raise ValueError(f"s_bar_metrics keys {sorted(dup)} collide with "
-                         f"driver metrics — rename them in the problem")
-    metrics.update({k: torch.mean(v, dim=0) for k, v in cmetrics.items()})
     metrics.update(aux_metrics)
     return new_state, metrics
 
@@ -747,7 +1000,7 @@ def run(problem, x0, data, schedule, *, spec: Optional[FederationSpec] = None,
         return _run_centralized(problem, x0, data, schedule,
                                 n_rounds=n_rounds, state0=state0, device=dev)
     _validate(spec, mesh, client_axis, client_mode, uplink, sanitize,
-              audit_keys, None, dev)
+              audit_keys, dev)
     if key is None:
         raise ValueError("federated run needs a key (generator or seed)")
     gen = _as_generator(key)

@@ -6,8 +6,8 @@ Axes (the reference's semantics): ``participation`` (Bernoulli-p, A5),
 ``aggregation`` ("surrogate" | "parameter"), ``normalization``
 ("expected" | "realized"), ``delta`` ("drift" | "oracle"),
 ``server_momentum`` (FedAvgM), ``max_staleness``/``staleness_weight`` (for
-the cohort scheduler; validated here, unused by ``run``), ``topology``.
-The fault axis is not ported yet: ``faults`` must be None.
+the cohort scheduler; validated here, unused by ``run``), ``faults`` (a
+``repro_torch.faults.FaultSpec``), ``topology``.
 """
 from __future__ import annotations
 
@@ -104,8 +104,19 @@ class FederationSpec:
                     "topology.reencode=True requires a compressor with a "
                     "tier-boundary reencode hook")
         if self.faults is not None:
-            raise NotImplementedError(
-                "the fault axis is not ported yet (ROADMAP Queue A item 10)")
+            from ..faults.spec import FaultSpec
+            if not isinstance(self.faults, FaultSpec):
+                raise ValueError(f"faults must be a repro_torch.faults."
+                                 f"FaultSpec, got {type(self.faults).__name__}")
+            if self.faults.corrupt > 0.0 and not (
+                    self.compressor.encode is not None
+                    and self.compressor.checksum):
+                # undetected damage would be laundered into the aggregate
+                raise ValueError(
+                    "faults.corrupt > 0 requires a checksummed wire-format "
+                    "compressor (e.g. block_quant(..., checksum=True)) so "
+                    "damage is detected rather than laundered into the "
+                    "aggregate")
 
     def client_weights(self, device=None) -> torch.Tensor:
         """mu_i as float32; uniform 1/n unless given explicitly."""

@@ -329,7 +329,7 @@ def test_step_rejects_what_is_not_ported():
     g = torch.Generator().manual_seed(0)
     for kw, err in ((dict(mesh=object()), TypeError),
                     (dict(mesh=object(), client_mode="scan"), ValueError),
-                    (dict(cohort=object()), NotImplementedError),
+                    (dict(cohort=object()), TypeError),
                     (dict(sanitize=True), NotImplementedError),
                     (dict(audit_keys=True), NotImplementedError),
                     (dict(uplink="reduce"), ValueError),
@@ -345,7 +345,7 @@ def test_step_rejects_what_is_not_ported():
     # off the mesh the two-tier round runs and bills its backbone
     _, m = tapi.step(tp, two, st, b, 0.1, g, device="cpu")
     assert float(m["backbone_bytes"]) == 2 * 6 * 4
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="FaultSpec"):
         tapi.FederationSpec(n_clients=4, faults=object())
     assert JTopology.two_tier(2).edge_ids(4).tolist() == \
         tapi.Topology.two_tier(2).edge_ids(4).tolist()
