@@ -28,10 +28,14 @@ entry points at full width and checks what comes out:
 2. serving (``repro_torch.launch.serve.serve``: prefill, then greedy
    decode with the ring-buffer KV cache) of phi3-medium-14b (40 layers,
    bf16, the flash-attention kernel in every prefill layer; then the
-   int8 KV cache) and of rwkv6-3b (32 layers, bf16, the WKV6 kernel in
-   every prefill layer), random weights from a seed, batch 4, 2048-token
-   prompts; plus a decode-consistency check of each on a full-width
-   two-layer float32 build; and before them the default serve command
+   int8 KV cache), of rwkv6-3b (32 layers, bf16, the WKV6 kernel in
+   every prefill layer) and of gemma3-12b (48 layers, hd 256, bf16: the
+   flash kernel in every prefill layer, 40 of them with the local window
+   of 1024 and a ring cache, 8 global; then the int8 KV cache), random
+   weights from a seed, batch 4, 2048-token prompts; plus a
+   decode-consistency check of each on a full-width two-layer float32
+   build (gemma3's one local and one global layer, at prompts of 2048,
+   1500 and 600 tokens); and before them the default serve command
    (``--preset smoke``, reduced float32 configs) of each arch;
 3. the paper's figures (``repro_torch.benchmarks``): Fig. 1 (FedMM against
    naive parameter-space aggregation) and Fig. 2 (control variates) of
@@ -1361,16 +1365,19 @@ def _attention_keeping(q, k, v, keep):
     return out.reshape(q.shape).to(q.dtype)
 
 
-def planted_attention_faults(q, k, v, want):
-    """Outputs that a wrong causal kernel would give at the path's shape,
-    held against the plain version ``want`` with the bf16 limit, which
-    must fail each of them: a late 64-key tile (keys S/2 .. S/2 + 63)
-    skipped by every query past it, and a normalizer 3% off. Returns a
-    record per fault, with the ratio under the old 3e-2 limit beside."""
+def planted_attention_faults(q, k, v, want, window: int = 0):
+    """Outputs that a wrong causal kernel (``window``: of that sliding
+    window) would give at the path's shape, held against the plain
+    version ``want`` with the bf16 limit, which must fail each of them: a
+    late 64-key tile (keys S/2 .. S/2 + 63) skipped by every query past
+    it, and a normalizer 3% off. Returns a record per fault, with the
+    ratio under the old 3e-2 limit beside."""
     import torch
     S = q.shape[1]
     pos = torch.arange(S, device=q.device)
     keep = pos[None, :] <= pos[:, None]
+    if window:
+        keep &= pos[None, :] > pos[:, None] - window
     lo = S // 2
     keep[lo + 64:, lo:lo + 64] = False
     faults = {"late 64-key tile skipped": _attention_keeping(q, k, v, keep),
@@ -1411,13 +1418,118 @@ def planted_scan_faults(r, k, v, w, u, y_want, st_want):
     return records
 
 
+def sdpa_backend(fn) -> str:
+    """The kernel that one call of ``fn`` (a scaled_dot_product_attention
+    call) spends most device time in, from torch.profiler: which of
+    PyTorch's attention backends the dispatcher chose."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if "CUDA" in str(getattr(e, "device_type", ""))]
+    dev = lambda e: float(getattr(e, "self_device_time_total",
+                                  getattr(e, "self_cuda_time_total", 0.0)))
+    return max(events, key=dev).key[:100] if events else "not measured"
+
+
+def gemma3_attention_checks(gen, checks: list) -> dict:
+    """Flash attention at gemma3-12b's prefill shapes (B 4, S 2048, H 16,
+    KV 8, hd 256): the global layers' causal shape, the local layers'
+    window of 1024, and a ragged 2047-token one with a window of 1000
+    (its edge inside a 64-key tile), each in bf16 and float32 against the
+    plain version at FLASH_TOL. At the global and local shapes the planted
+    faults, the kernel's time against its bound, and SDPA's time beside
+    (K/V expanded; is_causal at the global shape, a boolean attn_mask at
+    the local one) with the backend it ran. Returns the hd-256 records."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention as fa
+
+    cfg = configs.get("gemma3-12b")
+    B, S = SERVE_BATCH, PROMPT_LEN
+    H, KV, hd, W = cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.window
+    records = {}
+    for name, Sq, window in (("gemma3 global", S, 0), ("gemma3 local", S, W),
+                             ("gemma3 ragged window", S - 1, 1000)):
+        for dtype in (torch.bfloat16, torch.float32):
+            q = _randn((B, Sq, H, hd), gen, dtype)
+            k = _randn((B, Sq, KV, hd), gen, dtype)
+            v = _randn((B, Sq, KV, hd), gen, dtype)
+            got = fa.flash_attention(q, k, v, causal=True, window=window)
+            want = fa.flash_attention_plain(q, k, v, causal=True,
+                                            window=window)
+            tol = FLASH_TOL[str(dtype).split(".")[1]]
+            err, ratio = max_abs_err(got, want), worst_ratio(got, want, tol)
+            require(ratio <= 1.0,
+                    f"flash attention ({name}, {dtype}) differs from its "
+                    f"plain version: max abs err {err}, {ratio} x {tol}")
+            rec = {"case": name, "shape": [B, Sq, Sq, H, KV, hd],
+                   "causal": True, "window": window, "dtype": str(dtype),
+                   "max_abs_err": err, "worst_ratio": ratio, "tol": tol}
+            checks.append(rec)
+            del got
+            if Sq != S:
+                continue
+            call = lambda: fa.flash_attention(q, k, v, causal=True,
+                                              window=window)
+            if dtype == torch.float32:
+                records[name]["f32_ms"] = time_ms(call, 3)
+                continue
+            rec["planted_faults"] = planted_attention_faults(q, k, v, want,
+                                                             window)
+            pos = torch.arange(S, device="cuda")
+            keep = pos[None, :] <= pos[:, None]
+            if window:
+                keep &= pos[None, :] > pos[:, None] - window
+            pairs = int(keep.sum())                       # valid (q, k)
+            nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+            flops = 4 * hd * pairs * B * H
+            entry = {"window": window, "pairs": pairs, "flop": flops,
+                     "max_abs_err": err}
+            entry["bound_ms"], entry["bound_by"] = bound(nbytes, flops,
+                                                         BF16_OPS_PER_S)
+            entry["ms"] = time_ms(call, 10)
+            entry["pct_of_bound"] = 100 * entry["bound_ms"] / entry["ms"]
+            entry["tflops"] = flops / (entry["ms"] * 1e-3) / 1e12
+            entry["plain_ms"] = time_ms(
+                lambda: fa.flash_attention_plain(q, k, v, causal=True,
+                                                 window=window), 2, 1)
+            qh = q.transpose(1, 2).contiguous()
+            kh = k.repeat_interleave(H // KV, dim=2).transpose(1, 2) \
+                .contiguous()
+            vh = v.repeat_interleave(H // KV, dim=2).transpose(1, 2) \
+                .contiguous()
+            if window:
+                lib = lambda: F.scaled_dot_product_attention(
+                    qh, kh, vh, attn_mask=keep)
+            else:
+                lib = lambda: F.scaled_dot_product_attention(
+                    qh, kh, vh, is_causal=True)
+            r = worst_ratio(lib().transpose(1, 2), want, BF16_TOL)
+            require(r <= 1.0, f"flash attention ({name}) disagrees with "
+                    f"scaled_dot_product_attention: {r} x the tolerance")
+            rec["sdpa_worst_ratio"] = r
+            entry["library_ms"] = time_ms(lib, 10)
+            entry["library_backend"] = sdpa_backend(lib)
+            records[name] = entry
+            del qh, kh, vh, keep
+        del q, k, v, want
+        _free()
+    return records
+
+
 def lm_kernel_checks():
     """Flash attention at phi3's prefill shape (bf16, B 4, S 2048, H 40,
     KV 10, hd 128, causal), a sliding-window and a ragged non-causal
-    shape; the WKV6 scan at rwkv6's prefill shape (bf16, B 4, S 2048,
-    H 40, hd 64). Each against its plain version, with its time, bound
-    and, for attention, the library call's time. Returns (phase record,
-    kernel records)."""
+    shape, and gemma3-12b's hd-256 shapes (``gemma3_attention_checks``);
+    the WKV6 scan at rwkv6's prefill shape (bf16, B 4, S 2048, H 40,
+    hd 64). Each against its plain version, with its time, bound and, for
+    attention, the library call's time. Returns (phase record, kernel
+    records)."""
     import torch
     import torch.nn.functional as F
     from repro_torch import configs
@@ -1485,6 +1597,7 @@ def lm_kernel_checks():
                    bf16)
     attention_case("non-causal ragged", 2, 333, 1000, 8, 4, 32, False, 0,
                    torch.float32)
+    flash["hd256"] = gemma3_attention_checks(gen, checks)
 
     # the WKV6 scan at rwkv6's prefill shape: decays as the model makes
     # them, exp(-exp(w_raw)) with w_raw near the -2 bias
@@ -1561,9 +1674,10 @@ def _check_served(cfg, toks, info, new_tokens) -> None:
 def serve_smoke_presets():
     """The port's default serve command, ``python -m
     repro_torch.launch.serve --arch A`` (``--preset smoke``: the reduced
-    float32 config, two layers; rwkv6's head dim 16, phi3's 32), for every
-    ported arch, through ``launch/serve.py:main`` on the card: ids in
-    [0, vocab), finite logits, one kernel launch per layer in the one
+    float32 config, two layers; rwkv6's head dim 16, phi3's and gemma3's
+    32, gemma3's layers [swa_mlp, attn_mlp] with a window of 16), for
+    every ported arch, through ``launch/serve.py:main`` on the card: ids
+    in [0, vocab), finite logits, one kernel launch per layer in the one
     prefill (counts set to 0 just before, read just after)."""
     from repro_torch import configs
     from repro_torch.kernels import flash_attention as fa
@@ -1573,7 +1687,9 @@ def serve_smoke_presets():
     out = {"phase": "serve_smoke_preset", "archs": {}}
     for aid, counter, key in (("phi3-medium-14b", fa.LAUNCHES,
                                "flash_attention"),
-                              ("rwkv6-3b", rs.LAUNCHES, "rwkv_scan")):
+                              ("rwkv6-3b", rs.LAUNCHES, "rwkv_scan"),
+                              ("gemma3-12b", fa.LAUNCHES,
+                               "flash_attention")):
         cfg = configs.get(aid).reduced()
         counter[key] = 0
         toks, info = serve.main(["--arch", aid, "--device", "cuda"])
@@ -1591,45 +1707,71 @@ def serve_smoke_presets():
     return out
 
 
-def decode_consistency(cfg, recurrent: bool):
-    """A full-width two-layer float32 build of ``cfg``: decode(prefill(
-    x[:S]), x[S], pos=S) against prefill(x[:S+1])'s last logits at S =
-    PROMPT_LEN, within CONSISTENCY_TOL (tests/test_models_smoke.py's
-    checks; the attention cache is allocated S + 8 long)."""
+def decode_consistency(cfg, recurrent: bool, prompts=(PROMPT_LEN,)):
+    """A full-width two-layer float32 build of ``cfg`` (gemma3's with
+    ``global_every=2``: one local layer, window 1024, and one global):
+    decode(prefill(x[:S]), x[S], pos=S) against prefill(x[:S+1])'s last
+    logits at each S of ``prompts``, within CONSISTENCY_TOL
+    (tests/test_models_smoke.py's checks; the attention cache is
+    allocated S + 8 long)."""
     import dataclasses
     import torch
+    from repro_torch.models import transformer as T
     from repro_torch.models.model import build_model, make_batch
 
-    cfg2 = dataclasses.replace(cfg, n_layers=2, dtype="float32")
+    cfg2 = dataclasses.replace(cfg, n_layers=2, dtype="float32",
+                               global_every=min(cfg.global_every, 2))
     model = build_model(cfg2, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
     params = model.init(gen)
-    toks = make_batch(gen, cfg2, SERVE_BATCH, PROMPT_LEN + 1)["tokens"]
-    S = PROMPT_LEN
-    _, cache = model.prefill(params, {"tokens": toks[:, :S]},
-                             cache_len=None if recurrent else S + 8)
-    got, _ = model.decode(params, cache, toks[:, S:S + 1], S)
-    want, _ = model.prefill(params, {"tokens": toks})
-    got, want = got[..., :cfg.vocab], want[..., :cfg.vocab]
-    err = max_abs_err(got, want)
-    require(bool(torch.isfinite(got).all()), "decode logits not finite")
-    require(worst_ratio(got, want, {"atol": CONSISTENCY_TOL,
-                                    "rtol": CONSISTENCY_TOL}) <= 1.0,
-            f"{cfg.name}: decode disagrees with prefill: {err}")
-    del params, cache
+    toks = make_batch(gen, cfg2, SERVE_BATCH, max(prompts) + 1)["tokens"]
+    out = {"layers": T.layer_pattern(cfg2), "dtype": "float32",
+           "tol": CONSISTENCY_TOL, "checks": []}
+    for S in prompts:
+        cache_len = None if recurrent else S + 8
+        _, cache = model.prefill(params, {"tokens": toks[:, :S]},
+                                 cache_len=cache_len)
+        got, _ = model.decode(params, cache, toks[:, S:S + 1], S)
+        want, _ = model.prefill(params, {"tokens": toks[:, :S + 1]})
+        got, want = got[..., :cfg.vocab], want[..., :cfg.vocab]
+        err = max_abs_err(got, want)
+        require(bool(torch.isfinite(got).all()), "decode logits not finite")
+        require(worst_ratio(got, want, {"atol": CONSISTENCY_TOL,
+                                        "rtol": CONSISTENCY_TOL}) <= 1.0,
+                f"{cfg.name}: decode disagrees with prefill at a "
+                f"{S}-token prompt: {err}")
+        out["checks"].append({"prompt": S, "cache_len": cache_len,
+                              "max_abs_err": err})
+        del cache, got, want
+    del params
     _free()
-    return {"layers": 2, "dtype": "float32", "prompt": S,
-            "max_abs_err": err, "tol": CONSISTENCY_TOL}
+    return out
+
+
+def cache_bytes_by_kind(cfg, batch: int, seq_len: int) -> dict:
+    """The bytes of each layer kind's KV cache (or state) for ``batch``
+    sequences of ``seq_len`` positions: ``init_cache``'s layout, built on
+    the meta device (no memory)."""
+    from repro_torch.models import transformer as T
+    from repro_torch.models.model import build_model
+    caches = build_model(cfg, device="meta").init_cache(batch, seq_len)
+    out = {}
+    for kind, cache in zip(T.layer_pattern(cfg), caches):
+        out[kind] = out.get(kind, 0) + sum(
+            t.numel() * t.element_size() for t in cache.values())
+    return out
 
 
 def serve_model(aid: str, launches: dict, per_prefill_name: str,
-                int8_tokens: int, profile: bool):
+                int8_tokens: int, profile: bool, prompts=(PROMPT_LEN,)):
     """The serving path for one architecture at full width and depth:
     random bf16 weights on the card from SEED (one matrix at a time), a
     warm-up request, then batch SERVE_BATCH of PROMPT_LEN-token prompts
     with NEW_TOKENS greedy tokens, and (``int8_tokens`` > 0) the same
-    batch with the int8 KV cache. ``launches`` is the kernel's counter:
-    set to 0 just before the measured requests, read just after."""
+    batch with the int8 KV cache; the cache's bytes by layer kind; then
+    ``decode_consistency`` at ``prompts``. ``launches`` is the kernel's
+    counter: set to 0 just before the measured requests, read just
+    after."""
     import dataclasses
     import torch
     from repro_torch import configs
@@ -1659,6 +1801,8 @@ def serve_model(aid: str, launches: dict, per_prefill_name: str,
     out["bf16_kv"] = dict(info, new_tokens=NEW_TOKENS,
                           launches=launches[per_prefill_name],
                           peak_bytes=torch.cuda.max_memory_allocated(),
+                          cache_bytes=cache_bytes_by_kind(
+                              cfg, SERVE_BATCH, PROMPT_LEN + NEW_TOKENS),
                           ids_seq0=toks[0].tolist())
     _check_served(cfg, toks, info, NEW_TOKENS)
     require(launches[per_prefill_name] == cfg.n_layers,
@@ -1672,6 +1816,9 @@ def serve_model(aid: str, launches: dict, per_prefill_name: str,
         _check_served(cfg, toks8, info8, int8_tokens)
         out["int8_kv"] = dict(info8, new_tokens=int8_tokens,
                               peak_bytes=torch.cuda.max_memory_allocated(),
+                              cache_bytes=cache_bytes_by_kind(
+                                  model8.cfg, SERVE_BATCH,
+                                  PROMPT_LEN + int8_tokens),
                               ids_seq0=toks8[0].tolist())
     count = launches[per_prefill_name]
     n_prefills = 2 if int8_tokens else 1
@@ -1682,7 +1829,8 @@ def serve_model(aid: str, launches: dict, per_prefill_name: str,
         emit(profile_serving(model, params, batch))
     del params
     _free()
-    out["decode_consistency"] = decode_consistency(cfg, cfg.family == "ssm")
+    out["decode_consistency"] = decode_consistency(cfg, cfg.family == "ssm",
+                                                   prompts)
     return out
 
 
@@ -2116,10 +2264,22 @@ def main() -> int:
     _free()
 
     lm_phase, lm_kernels = lm_kernel_checks()
-    # the bf16 kernel at the path's head dim (hd 128)
-    lm_kernels["flash_attention"]["ptxas"] = ptxas_report(
-        build.BUILD_INFO.get(fa.SOURCE.name, ""), "fa_hopper_kernelILi128E",
-        fa._lib().fa_smem_bytes(128))
+    # the bf16 kernel at the paths' head dims (phi3's 128, gemma3's 256),
+    # and the float32 kernel at 256, with the blocks an SM holds
+    flash = lm_kernels["flash_attention"]
+    fa_report = build.BUILD_INFO.get(fa.SOURCE.name, "")
+    flash["ptxas"] = ptxas_report(fa_report, "fa_hopper_kernelILi128E",
+                                  fa._lib().fa_smem_bytes(128))
+    flash["ptxas_hd256"] = {
+        "bf16": dict(ptxas_report(fa_report, "fa_hopper_kernelILi256E",
+                                  fa._lib().fa_smem_bytes(256)),
+                     blocks_per_sm=fa.blocks_per_sm(torch.bfloat16, 256)),
+        "f32": dict(ptxas_report(fa_report, "flash_fwd_kernelIfLi256E", 0),
+                    blocks_per_sm=fa.blocks_per_sm(torch.float32, 256))}
+    hd256 = flash["ptxas_hd256"]["bf16"]
+    require(hd256["registers"] > 0 and hd256["spill_store_bytes"] == 0
+            and hd256["spill_load_bytes"] == 0,
+            f"the bf16 hd-256 flash kernel spills: {hd256}")
     # the scan at the path's shape (bf16, hd 64)
     lm_kernels["rwkv_scan"]["ptxas"] = ptxas_report(
         build.BUILD_INFO.get(rs.SOURCE.name, ""),
@@ -2127,14 +2287,25 @@ def main() -> int:
     emit(dict(lm_phase, card=card))
     _free()
     emit(dict(serve_smoke_presets(), card=card))
-    for aid, counter, key, int8_tokens in (
+    # gemma3's decode against prefill at a multiple of its window (2048),
+    # above it (1500) and below it (600)
+    for aid, counter, key, int8_tokens, prompts in (
             ("phi3-medium-14b", fa.LAUNCHES, "flash_attention",
-             NEW_TOKENS_INT8),
-            ("rwkv6-3b", rs.LAUNCHES, "rwkv_scan", 0)):
-        served = serve_model(aid, counter, key, int8_tokens, profile)
+             NEW_TOKENS_INT8, (PROMPT_LEN,)),
+            ("rwkv6-3b", rs.LAUNCHES, "rwkv_scan", 0, (PROMPT_LEN,)),
+            ("gemma3-12b", fa.LAUNCHES, "flash_attention", NEW_TOKENS_INT8,
+             (PROMPT_LEN, 1500, 600))):
+        served = serve_model(aid, counter, key, int8_tokens, profile,
+                             prompts)
         emit(dict(served, card=card))
+        # the serve path's launches: the sum over the archs of the row's
+        # kernel, each counted from 0 over its own measured requests
         n = served["launches"]
-        lm_kernels[key].update(launches=n, launches_by_path={"serve": n})
+        row = lm_kernels[key]
+        by_arch = row.setdefault("launches_by_arch", {})
+        by_arch[aid] = n
+        total = sum(by_arch.values())
+        row.update(launches=total, launches_by_path={"serve": total})
     kernels.update(lm_kernels)
     emit({"kernels": list(kernels.values())})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})

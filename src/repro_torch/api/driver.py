@@ -134,13 +134,17 @@ class CohortPartial(NamedTuple):
     where the reference sums float32 bills and rounds at model width),
     the per-client oracle metrics summed
     over the cohort's real clients (divide by n after summing cohorts),
-    and the mesh collective's operand bytes (None off the mesh)."""
+    the mesh collective's operand bytes (None off the mesh), and, when
+    the cohort holds all n clients, ``step``'s own means of those metrics
+    (``torch.mean`` over the client dim; on CUDA a mean multiplies by
+    1 / n, so the sum over n may part from it by an ulp), else None."""
     agg: Pytree
     v_i: Pytree
     n_active: torch.Tensor
     comm_bytes: torch.Tensor
     metric_sums: dict
     collective_payload_bytes: Optional[float]
+    metric_means: Optional[dict] = None
 
 
 def resolve_device(device=None) -> torch.device:
@@ -901,6 +905,8 @@ def _cohort_partial(problem: MMProblem, spec: FederationSpec,
     comm = comp.round_metrics(state.x, p=spec.participation)
     per_client = (wire_bytes_client if use_wire
                   else comm["payload_bytes_per_client"])
+    every_client = c == spec.n_clients and (
+        cohort.valid is None or bool(torch.as_tensor(cohort.valid).all()))
     if cohort.valid is None:
         metric_sums = {k: torch.sum(v, dim=0) for k, v in cmetrics.items()}
     else:
@@ -922,7 +928,9 @@ def _cohort_partial(problem: MMProblem, spec: FederationSpec,
         comm_bytes=(torch.tensor(per_client, dtype=torch.float32).double()
                     * torch.sum(mask).double()),
         metric_sums=metric_sums,
-        collective_payload_bytes=collective_bytes)
+        collective_payload_bytes=collective_bytes,
+        metric_means=({k: torch.mean(v, dim=0) for k, v in cmetrics.items()}
+                      if every_client else None))
 
 
 def apply_partial(problem, spec: FederationSpec, state: DriverState, agg,

@@ -8,9 +8,9 @@
 // scores are a large finite negative, as in the TPU kernel, so a tile in
 // which a row has no valid key adds exp(0) terms that the first tile with a
 // valid key clears (corr = exp(m_prev - m_new) = 0). The softmax is online
-// and in float32; the output is written in the input type. hd is 32, 64 or
-// 128. Both paths read q, k and v through their (batch, sequence, head)
-// strides: no copy of K/V per query head, no transpose, no padding.
+// and in float32; the output is written in the input type. hd is 32, 64,
+// 128 or 256. Both paths read q, k and v through their (batch, sequence,
+// head) strides: no copy of K/V per query head, no transpose, no padding.
 //
 // Bound on the H100: the operations. At the serving path's shape (bf16,
 // B 4, S 2048, H 40, KV 10, hd 128, causal) the valid (query, key) pairs
@@ -19,6 +19,11 @@
 // 3.35 TB/s). Only the tensor cores, kept fed and kept busy while the
 // softmax runs, come near that; the softmax itself (one ex2 per score on
 // 16 lanes per SM) would take half the products' time if it ran alone.
+// At gemma3-12b's (B 4, S 2048, H 16, KV 8, hd 256) the causal global
+// layers need 1.375e11 FLOP (0.139 ms) and the local layers' window of
+// 1024 1.031e11 (0.104 ms), against about 201 MB (0.060 ms): the
+// operations again, and with twice the products per score the softmax
+// weighs half as much.
 //
 // bfloat16: a persistent, warp-specialised wgmma kernel fed by TMA
 // (namespace hopper).
@@ -38,17 +43,20 @@
 //     hd 128 takes two boxes per tile) or, at hd 32, of 32 bf16 with the
 //     64-byte swizzle. Rows past Sq or Sk come in as zeros (out-of-bounds
 //     fill), so the ragged edges need no padding copy. K and V come in a
-//     ring of two stages of 128-key tiles, with full and empty barriers for
-//     K and for V apart: K of a stage is released once S has read it, V
-//     once P V has. At hd 128 that is 32 KB of Q and 2 x 64 KB of K/V, one
-//     block per SM.
-//   * S = Q K^T: per tile, hd / 16 wgmma m64n128k16 (bf16 in, float32
+//     ring of two stages of K/V tiles (Tile<HD>::kKeys keys: 128, or 64 at
+//     hd 256), with full and empty barriers for K and for V apart: K of a
+//     stage is released once S has read it, V once P V has. At hd 128 that
+//     is 32 KB of Q and 2 x 64 KB of K/V; at hd 256, 64 KB of Q and 2 x 64
+//     KB of 64-key K/V (128-key tiles would need 256 KB): one block per SM.
+//   * S = Q K^T: per tile, hd / 16 wgmma m64n{kKeys}k16 (bf16 in, float32
 //     accumulator in registers), A = Q and B = K both K-major from shared
 //     memory as they lie.
 //   * O += P V: P is rounded to bf16 in registers (as SDPA does), and the
-//     m64n128 accumulator fragment is the A-register fragment of the next
-//     wgmma (m64n{hd}k16, 8 per tile); B = V from shared memory, MN-major
-//     through the descriptor's transpose bit, so V is never transposed.
+//     m64n{kKeys} accumulator fragment is the A-register fragment of the
+//     next wgmma (m64n{hd}k16, kKeys / 16 per tile; at hd 256 two m64n128
+//     halves, so a consumer holds 128 + 32 + 16 registers of O, S and P);
+//     B = V from shared memory, MN-major through the descriptor's
+//     transpose bit, so V is never transposed.
 //   * Overlap: a consumer issues tile i's S together with tile i - 1's
 //     P V, then runs tile i's softmax while P V runs. The two consumers
 //     take turns to issue (named barriers: ping-pong), so one's softmax
@@ -62,7 +70,8 @@
 //   * Epilogue: O / l from registers, bf16 stores of rows below Sq.
 //
 // float32: the SIMT kernel (flash_fwd_kernel), kept for the float32
-// checks (2e-4 / 2e-5), which TF32 tensor cores could not meet. One block
+// checks (2e-4 / 2e-5), which TF32 tensor cores could not meet (at hd 256
+// its 198,656 B of shared memory allow one block per SM). One block
 // per (query tile of 64 rows, head, batch); per KV tile of 64 keys the
 // block stages K and V in shared memory, forms the 64 x 64 scores, updates
 // the online softmax, stages P in shared memory (over K's tile) and adds
@@ -147,8 +156,14 @@ struct Smem {
   static constexpr int kBytes = (kQ + kKP + kV) * 4;
 };
 
+// Blocks per SM that the shared memory allows: two below hd 256, one at
+// hd 256 (Smem<256>::kBytes is 198,656 B), which also lets a thread keep
+// its 4 x 16 accumulator in up to 255 registers
+template <int HD>
+constexpr int kMinBlocks = HD > 128 ? 1 : 2;
+
 template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(kThreads, kMinBlocks<HD>)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ out, Strides qs,
                  Strides ks, Strides vs, Strides os, int Sq, int Sk, int group,
@@ -331,6 +346,9 @@ cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v,
     case 128:
       return launch<T, 128>(q, k, v, out, qs, ks, vs, os, B, Sq, Sk, H, group,
                             causal, window, scale_log2, stream);
+    case 256:
+      return launch<T, 256>(q, k, v, out, qs, ks, vs, os, B, Sq, Sk, H, group,
+                            causal, window, scale_log2, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -342,7 +360,7 @@ cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v,
 
 namespace hopper {
 
-constexpr int kRows = 128;       // query rows per work item, keys per tile
+constexpr int kRows = 128;       // query rows per work item
 constexpr int kConsumers = 2;    // warpgroups of 64 query rows
 constexpr int kThreads = 128 * (kConsumers + 1);
 constexpr int kStages = 2;       // K/V ring
@@ -357,17 +375,25 @@ struct Tile {
   static constexpr int kBox = HD < 64 ? HD : 64;   // bf16 per swizzle row
   static constexpr int kBoxes = HD / kBox;         // boxes per tile
   static constexpr int kRowBytes = 2 * kBox;       // 128 or 64
-  static constexpr int kBoxBytes = kRows * kRowBytes;
-  static constexpr int kBytes = kBoxes * kBoxBytes;  // one Q, K or V tile
+  // keys per K/V tile: 128, or 64 at hd 256, where a 64 KB Q tile and two
+  // stages of 128-key K and V tiles (256 KB) would not fit in 227 KB
+  static constexpr int kKeys = HD > 128 ? 64 : kRows;
+  static constexpr int kQBoxBytes = kRows * kRowBytes;
+  static constexpr int kKVBoxBytes = kKeys * kRowBytes;
+  static constexpr int kQBytes = kBoxes * kQBoxBytes;    // one Q tile
+  static constexpr int kKVBytes = kBoxes * kKVBoxBytes;  // one K or V tile
+  static constexpr int kScores = kKeys / 2;  // S accumulator floats a thread
+  static constexpr int kSteps = kKeys / 16;  // k16 steps of P V per tile
   // wgmma descriptor swizzle mode: 1 = 128-byte, 2 = 64-byte
   static constexpr uint64_t kSwizzle = kRowBytes == 128 ? 1 : 2;
   static constexpr uint32_t kSbo = 8 * kRowBytes;   // the next 8 rows
 };
 
 // Q, the K stages, the V stages, their barriers, and room to align the
-// tiles to 1024 bytes (the 128-byte swizzle's period)
+// tiles to 1024 bytes (the 128-byte swizzle's period): 197,760 B at hd 256
 template <int HD>
-constexpr int kSmemBytes = 1024 + (1 + 2 * kStages) * Tile<HD>::kBytes + 128;
+constexpr int kSmemBytes = 1024 + Tile<HD>::kQBytes +
+                           2 * kStages * Tile<HD>::kKVBytes + 128;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -483,6 +509,21 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 __device__ __forceinline__ void wgmma_rs_n32(float (&d)[16], const uint32_t (&a)[4],
                                                uint64_t db) {
   asm volatile(
@@ -531,45 +572,63 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// the 64 x 64 floats of o[64 h .. 64 h + 63]: hd columns 128 h .. 128 h +
+// 127 of an m64n256 accumulator, laid out as an m64n128 one
+template <int H>
+__device__ __forceinline__ float (&half128(float (&o)[128]))[64] {
+  return *reinterpret_cast<float(*)[64]>(&o[64 * H]);
+}
+
+// O (+)= P V for one k16 step, N = hd. At hd 256 as two n128 halves, the
+// second two boxes (128 columns) on; `lbo` is the distance between boxes
 template <int HD>
 __device__ __forceinline__ void wgmma_pv(float (&o)[HD / 2],
-                                         const uint32_t (&a)[4], uint64_t db) {
+                                         const uint32_t (&a)[4],
+                                         uint32_t at, uint32_t lbo) {
   if constexpr (HD == 32) {
-    wgmma_rs_n32(o, a, db);
+    wgmma_rs_n32(o, a, smem_desc<HD>(at, lbo, Tile<HD>::kSbo));
   } else if constexpr (HD == 64) {
-    wgmma_rs_n64(o, a, db);
+    wgmma_rs_n64(o, a, smem_desc<HD>(at, lbo, Tile<HD>::kSbo));
+  } else if constexpr (HD == 128) {
+    wgmma_rs_n128(o, a, smem_desc<HD>(at, lbo, Tile<HD>::kSbo));
   } else {
-    wgmma_rs_n128(o, a, db);
+    wgmma_rs_n128(half128<0>(o), a, smem_desc<HD>(at, lbo, Tile<HD>::kSbo));
+    wgmma_rs_n128(half128<1>(o), a,
+                  smem_desc<HD>(at + 2 * lbo, lbo, Tile<HD>::kSbo));
   }
 }
 
-// S = Q K^T for one warpgroup's 64 rows and a 128-key tile, both K-major;
-// the k-th 16 of hd sit in box 16 k / kBox
+// S = Q K^T for one warpgroup's 64 rows and a K tile of kKeys keys, both
+// K-major; the k-th 16 of hd sit in box 16 k / kBox of each
 template <int HD>
-__device__ __forceinline__ void issue_s(float (&sc)[64], uint32_t q_wg,
-                                        uint32_t k_st) {
+__device__ __forceinline__ void issue_s(float (&sc)[Tile<HD>::kScores],
+                                        uint32_t q_wg, uint32_t k_st) {
   using T = Tile<HD>;
 #pragma unroll
   for (int kk = 0; kk < HD / 16; ++kk) {
-    const uint32_t off =
-        (kk * 16 / T::kBox) * T::kBoxBytes + (kk * 16 % T::kBox) * 2;
-    wgmma_ss_n128(sc, smem_desc<HD>(q_wg + off, 16, T::kSbo),
-                  smem_desc<HD>(k_st + off, 16, T::kSbo), kk);
+    const uint32_t box = kk * 16 / T::kBox, col = (kk * 16 % T::kBox) * 2;
+    const uint64_t da = smem_desc<HD>(q_wg + box * T::kQBoxBytes + col, 16,
+                                      T::kSbo);
+    const uint64_t db = smem_desc<HD>(k_st + box * T::kKVBoxBytes + col, 16,
+                                      T::kSbo);
+    if constexpr (T::kKeys == 128) {
+      wgmma_ss_n128(sc, da, db, kk);
+    } else {
+      wgmma_ss_n64(sc, da, db, kk);
+    }
   }
 }
 
 // O += P V, V MN-major: the kk-th 16 keys are 16 rows of the tile, the
-// boxes along hd T::kBoxBytes apart
+// boxes along hd T::kKVBoxBytes apart
 template <int HD>
-__device__ __forceinline__ void issue_pv(float (&o)[HD / 2],
-                                         const uint32_t (&pa)[8][4],
-                                         uint32_t v_st) {
+__device__ __forceinline__ void issue_pv(
+    float (&o)[HD / 2], const uint32_t (&pa)[Tile<HD>::kSteps][4],
+    uint32_t v_st) {
   using T = Tile<HD>;
 #pragma unroll
-  for (int kk = 0; kk < 8; ++kk)
-    wgmma_pv<HD>(o, pa[kk],
-                 smem_desc<HD>(v_st + kk * 16 * T::kRowBytes, T::kBoxBytes,
-                               T::kSbo));
+  for (int kk = 0; kk < T::kSteps; ++kk)
+    wgmma_pv<HD>(o, pa[kk], v_st + kk * 16 * T::kRowBytes, T::kKVBoxBytes);
 }
 
 // The running softmax state of a thread's two rows.
@@ -579,13 +638,15 @@ struct Rows {
   float c0, c1;        // the last tile's rescaling of the earlier terms
 };
 
-// One tile's scores become P (float32, in sc): p = 2^(s scale_log2 -
-// m scale_log2) with scale_log2 = log2(e) / sqrt(hd), one FFMA and one ex2
-// per score; m is kept unscaled. The mask is applied only where some (row,
-// key) pair of the warpgroup fails it, against limits relative to this
-// thread's first column, so the 64 column offsets stay immediates. row /
-// col: the accumulator layout's first row and column of this thread.
-__device__ __forceinline__ void softmax_tile(float (&sc)[64], Rows& r,
+// One tile's scores (N keys) become P (float32, in sc): p = 2^(s
+// scale_log2 - m scale_log2) with scale_log2 = log2(e) / sqrt(hd), one FFMA
+// and one ex2 per score; m is kept unscaled. The mask is applied only where
+// some (row, key) pair of the warpgroup fails it, against limits relative
+// to this thread's first column, so the N / 2 column offsets stay
+// immediates. row / col: the accumulator layout's first row and column of
+// this thread.
+template <int N>
+__device__ __forceinline__ void softmax_tile(float (&sc)[N / 2], Rows& r,
                                              bool masked, int k0, int row,
                                              int col, int Sk, int causal,
                                              int window, float scale_log2) {
@@ -595,7 +656,7 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[64], Rows& r,
     const int last0 = row - first;             // causal: c <= last
     const int last1 = last0 + 8;
 #pragma unroll
-    for (int j = 0; j < 16; ++j) {
+    for (int j = 0; j < N / 8; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int c = 8 * j + (e & 1);
@@ -609,11 +670,11 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[64], Rows& r,
   }
   float mx0 = kMasked, mx1 = kMasked;
 #pragma unroll
-  for (int j = 0; j < 16; ++j) {
+  for (int j = 0; j < N / 8; ++j) {
     mx0 = fmaxf(mx0, fmaxf(sc[4 * j], sc[4 * j + 1]));
     mx1 = fmaxf(mx1, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
   }
-  // a row's 128 scores lie on the 4 lanes of a quad
+  // a row's N scores lie on the 4 lanes of a quad
 #pragma unroll
   for (int off = 1; off < 4; off <<= 1) {
     mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
@@ -629,7 +690,7 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[64], Rows& r,
   r.m1 = n1;
   float sum0 = 0.0f, sum1 = 0.0f;
 #pragma unroll
-  for (int j = 0; j < 16; ++j) {
+  for (int j = 0; j < N / 8; ++j) {
     sc[4 * j] = ex2(fmaf(sc[4 * j], scale_log2, -s0));
     sc[4 * j + 1] = ex2(fmaf(sc[4 * j + 1], scale_log2, -s0));
     sc[4 * j + 2] = ex2(fmaf(sc[4 * j + 2], scale_log2, -s1));
@@ -654,10 +715,11 @@ __device__ __forceinline__ void rescale(float (&o)[N], const Rows& r) {
 
 // P in bf16: the accumulator's 8-column blocks 2 kk and 2 kk + 1 are the
 // A-register fragment of the kk-th 16 keys
-__device__ __forceinline__ void pack_p(uint32_t (&pa)[8][4],
-                                       const float (&sc)[64]) {
+template <int STEPS>
+__device__ __forceinline__ void pack_p(uint32_t (&pa)[STEPS][4],
+                                       const float (&sc)[8 * STEPS]) {
 #pragma unroll
-  for (int kk = 0; kk < 8; ++kk) {
+  for (int kk = 0; kk < STEPS; ++kk) {
     pa[kk][0] = pack_bf16(sc[8 * kk], sc[8 * kk + 1]);
     pa[kk][1] = pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
     pa[kk][2] = pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
@@ -665,9 +727,10 @@ __device__ __forceinline__ void pack_p(uint32_t (&pa)[8][4],
   }
 }
 
-__device__ __forceinline__ void fence_pa(uint32_t (&pa)[8][4]) {
+template <int STEPS>
+__device__ __forceinline__ void fence_pa(uint32_t (&pa)[STEPS][4]) {
 #pragma unroll
-  for (int kk = 0; kk < 8; ++kk)
+  for (int kk = 0; kk < STEPS; ++kk)
 #pragma unroll
     for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(pa[kk][i])::"memory");
 }
@@ -682,13 +745,14 @@ __device__ __forceinline__ void bar_arrive(int id) {
 }
 
 // One unit of work: a 128-row query tile of one (head, batch), and the
-// KV tiles some row of it needs.
+// KV tiles (of KEYS keys) some row of it needs.
 struct Work {
   int q0, h, b, t_begin, n_tiles;
 };
 
 // Work item w: the query tiles longest first (w / (H B) counts the tile
 // index down), then the heads, then the batch.
+template <int KEYS>
 __device__ __forceinline__ Work work_of(int w, int n_q, int H, int n_b,
                                         int Sk, int causal, int window) {
   Work u;
@@ -698,8 +762,8 @@ __device__ __forceinline__ Work work_of(int w, int n_q, int H, int n_b,
   u.b = hb / H;
   const int k_end = causal ? min(Sk, u.q0 + kRows) : Sk;
   const int k_begin = window ? max(0, u.q0 - window + 1) : 0;
-  u.t_begin = k_begin / kRows;
-  u.n_tiles = max(0, (k_end + kRows - 1) / kRows - u.t_begin);
+  u.t_begin = k_begin / KEYS;
+  u.n_tiles = max(0, (k_end + KEYS - 1) / KEYS - u.t_begin);
   return u;
 }
 
@@ -718,12 +782,12 @@ fa_hopper_kernel(const __grid_constant__ CUtensorMap tm_q,
   using T = Tile<HD>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
-  // Q; K of stage s at k_smem + s T::kBytes, V likewise; then the 8-byte
+  // Q; K of stage s at k_smem + s T::kKVBytes, V likewise; then the 8-byte
   // barriers q_full, q_empty, k_full[s], v_full[s], k_empty[s], v_empty[s]
   const uint32_t q_smem = base;
-  const uint32_t k_smem = q_smem + T::kBytes;
-  const uint32_t v_smem = k_smem + kStages * T::kBytes;
-  const uint32_t q_full = v_smem + kStages * T::kBytes;
+  const uint32_t k_smem = q_smem + T::kQBytes;
+  const uint32_t v_smem = k_smem + kStages * T::kKVBytes;
+  const uint32_t q_full = v_smem + kStages * T::kKVBytes;
   const uint32_t q_empty = q_full + 8;
   const uint32_t k_full = q_empty + 8;
   const uint32_t v_full = k_full + 8 * kStages;
@@ -754,34 +818,35 @@ fa_hopper_kernel(const __grid_constant__ CUtensorMap tm_q,
     if (threadIdx.x == kConsumers * 128) {
       int g = 0, item = 0;
       for (int w = blockIdx.x; w < n_work; w += gridDim.x, ++item) {
-        const Work u = work_of(w, n_q, H, n_b, Sk, causal, window);
+        const Work u =
+            work_of<T::kKeys>(w, n_q, H, n_b, Sk, causal, window);
         const int kvh = u.h / group;
         mbar_wait(q_empty, (item & 1) ^ 1);
-        mbar_expect_tx(q_full, T::kBytes);
+        mbar_expect_tx(q_full, T::kQBytes);
 #pragma unroll
         for (int c = 0; c < T::kBoxes; ++c)
-          tma_load(q_smem + c * T::kBoxBytes, &tm_q, q_full, c * T::kBox,
+          tma_load(q_smem + c * T::kQBoxBytes, &tm_q, q_full, c * T::kBox,
                    u.q0, u.h, u.b);
         for (int i = 0; i <= u.n_tiles; ++i) {
           if (i < u.n_tiles) {                   // K of tile i
             const int s = (g + i) % kStages;
             mbar_wait(k_empty + 8 * s, (((g + i) / kStages) & 1) ^ 1);
-            mbar_expect_tx(k_full + 8 * s, T::kBytes);
+            mbar_expect_tx(k_full + 8 * s, T::kKVBytes);
 #pragma unroll
             for (int c = 0; c < T::kBoxes; ++c)
-              tma_load(k_smem + s * T::kBytes + c * T::kBoxBytes, &tm_k,
-                       k_full + 8 * s, c * T::kBox, (u.t_begin + i) * kRows,
-                       kvh, u.b);
+              tma_load(k_smem + s * T::kKVBytes + c * T::kKVBoxBytes, &tm_k,
+                       k_full + 8 * s, c * T::kBox,
+                       (u.t_begin + i) * T::kKeys, kvh, u.b);
           }
           if (i > 0) {                           // V of tile i - 1
             const int s = (g + i - 1) % kStages;
             mbar_wait(v_empty + 8 * s, (((g + i - 1) / kStages) & 1) ^ 1);
-            mbar_expect_tx(v_full + 8 * s, T::kBytes);
+            mbar_expect_tx(v_full + 8 * s, T::kKVBytes);
 #pragma unroll
             for (int c = 0; c < T::kBoxes; ++c)
-              tma_load(v_smem + s * T::kBytes + c * T::kBoxBytes, &tm_v,
+              tma_load(v_smem + s * T::kKVBytes + c * T::kKVBoxBytes, &tm_v,
                        v_full + 8 * s, c * T::kBox,
-                       (u.t_begin + i - 1) * kRows, kvh, u.b);
+                       (u.t_begin + i - 1) * T::kKeys, kvh, u.b);
           }
         }
         g += u.n_tiles;
@@ -803,7 +868,8 @@ fa_hopper_kernel(const __grid_constant__ CUtensorMap tm_q,
     // last turn of the block hands over to no one
     int turns = 0;
     for (int w = blockIdx.x; w < n_work; w += gridDim.x) {
-      const int n = work_of(w, n_q, H, n_b, Sk, causal, window).n_tiles;
+      const int n =
+          work_of<T::kKeys>(w, n_q, H, n_b, Sk, causal, window).n_tiles;
       turns += n ? n + 1 : 0;
     }
     if (wg == 1 && turns > 0) bar_arrive(1);
@@ -811,19 +877,19 @@ fa_hopper_kernel(const __grid_constant__ CUtensorMap tm_q,
     auto turn_end = [&]() {
       if (--turns > 0 || wg == 0) bar_arrive(2 - wg);
     };
-    float o[HD / 2], sc[64];
-    uint32_t pa[8][4];
+    float o[HD / 2], sc[T::kScores];
+    uint32_t pa[T::kSteps][4];
 #pragma unroll
-    for (int i = 0; i < 64; ++i) sc[i] = 0.0f;
+    for (int i = 0; i < T::kScores; ++i) sc[i] = 0.0f;
     int g = 0, item = 0;
     for (int w = blockIdx.x; w < n_work; w += gridDim.x, ++item) {
-      const Work u = work_of(w, n_q, H, n_b, Sk, causal, window);
+      const Work u = work_of<T::kKeys>(w, n_q, H, n_b, Sk, causal, window);
       const int n = u.n_tiles;
       const int qmin = u.q0 + 64 * wg;           // this warpgroup's rows
       const int row = qmin + 16 * warp + lane / 4;
       // the tiles where some pair of this warpgroup is masked
       auto masked = [&](int k0) {
-        return k0 + kRows > Sk || (causal && k0 + kRows - 1 > qmin) ||
+        return k0 + T::kKeys > Sk || (causal && k0 + T::kKeys - 1 > qmin) ||
                (window && k0 <= qmin + 63 - window);
       };
 #pragma unroll
@@ -839,7 +905,7 @@ fa_hopper_kernel(const __grid_constant__ CUtensorMap tm_q,
         mbar_wait(k_full + 8 * s0, (g / kStages) & 1);
         turn_begin();
         wgmma_fence();
-        issue_s<HD>(sc, q_wg, k_smem + s0 * T::kBytes);
+        issue_s<HD>(sc, q_wg, k_smem + s0 * T::kKVBytes);
         wgmma_commit();
         turn_end();
         wgmma_wait<0>();
@@ -848,20 +914,21 @@ fa_hopper_kernel(const __grid_constant__ CUtensorMap tm_q,
           mbar_arrive(k_empty + 8 * s0);
           if (n == 1) mbar_arrive(q_empty);
         }
-        softmax_tile(sc, r, masked(u.t_begin * kRows), u.t_begin * kRows,
-                     row, col, Sk, causal, window, scale_log2);
+        softmax_tile<T::kKeys>(sc, r, masked(u.t_begin * T::kKeys),
+                               u.t_begin * T::kKeys, row, col, Sk, causal,
+                               window, scale_log2);
         pack_p(pa, sc);
         for (int i = 1; i < n; ++i) {
           const int gi = g + i;
           const int s = gi % kStages, sp = (gi - 1) % kStages;
-          const int k0 = (u.t_begin + i) * kRows;
+          const int k0 = (u.t_begin + i) * T::kKeys;
           mbar_wait(k_full + 8 * s, (gi / kStages) & 1);
           mbar_wait(v_full + 8 * sp, ((gi - 1) / kStages) & 1);
           turn_begin();
           wgmma_fence();
-          issue_s<HD>(sc, q_wg, k_smem + s * T::kBytes);
+          issue_s<HD>(sc, q_wg, k_smem + s * T::kKVBytes);
           wgmma_commit();
-          issue_pv<HD>(o, pa, v_smem + sp * T::kBytes);
+          issue_pv<HD>(o, pa, v_smem + sp * T::kKVBytes);
           wgmma_commit();
           turn_end();
           wgmma_wait<1>();                       // S of tile i
@@ -870,8 +937,8 @@ fa_hopper_kernel(const __grid_constant__ CUtensorMap tm_q,
             mbar_arrive(k_empty + 8 * s);
             if (i == n - 1) mbar_arrive(q_empty);
           }
-          softmax_tile(sc, r, masked(k0), k0, row, col, Sk, causal, window,
-                       scale_log2);
+          softmax_tile<T::kKeys>(sc, r, masked(k0), k0, row, col, Sk, causal,
+                                 window, scale_log2);
           wgmma_wait<0>();                       // P V of tile i - 1
           fence_regs(o);
           fence_pa(pa);
@@ -883,7 +950,7 @@ fa_hopper_kernel(const __grid_constant__ CUtensorMap tm_q,
         mbar_wait(v_full + 8 * sl, (gl / kStages) & 1);
         turn_begin();
         wgmma_fence();
-        issue_pv<HD>(o, pa, v_smem + sl * T::kBytes);
+        issue_pv<HD>(o, pa, v_smem + sl * T::kKVBytes);
         wgmma_commit();
         turn_end();
         wgmma_wait<0>();
@@ -946,13 +1013,14 @@ cudaError_t encoder(EncodeTiled* fn) {
 }
 
 // A rank-4 map over (hd, S, heads, B) of a bf16 (B, S, heads, hd) tensor
-// with element strides st; boxes of 128 rows of one swizzle row each.
-// Returns 0 or kEncodeError + the CUresult.
+// with element strides st; boxes of `rows` rows (128 for Q, Tile<HD>::kKeys
+// for K and V) of one swizzle row each. Returns 0 or kEncodeError + the
+// CUresult.
 constexpr int kEncodeError = 10000;
 
 template <int HD>
 int make_map(CUtensorMap* map, EncodeTiled encode, const void* ptr, int S,
-             int heads, int B, Strides st) {
+             int heads, int B, Strides st, int rows) {
   using T = Tile<HD>;
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(HD),
                               static_cast<cuuint64_t>(S),
@@ -961,7 +1029,7 @@ int make_map(CUtensorMap* map, EncodeTiled encode, const void* ptr, int S,
   const cuuint64_t strides[3] = {static_cast<cuuint64_t>(st.s) * 2,
                                  static_cast<cuuint64_t>(st.h) * 2,
                                  static_cast<cuuint64_t>(st.b) * 2};
-  const cuuint32_t box[4] = {T::kBox, kRows, 1, 1};
+  const cuuint32_t box[4] = {T::kBox, static_cast<cuuint32_t>(rows), 1, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   const CUresult r = encode(
       map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
@@ -982,9 +1050,12 @@ int launch(const void* q, const void* k, const void* v, void* out,
   if (err != cudaSuccess) return err;
   CUtensorMap tq, tk, tv;
   // a map needs extents >= 1; with Sk == 0 no tile is loaded
-  int rc = make_map<HD>(&tq, encode, q, Sq, H, B, qs);
-  if (rc == 0) rc = make_map<HD>(&tk, encode, k, max(Sk, 1), KV, B, ks);
-  if (rc == 0) rc = make_map<HD>(&tv, encode, v, max(Sk, 1), KV, B, vs);
+  constexpr int kKeys = Tile<HD>::kKeys;
+  int rc = make_map<HD>(&tq, encode, q, Sq, H, B, qs, kRows);
+  if (rc == 0)
+    rc = make_map<HD>(&tk, encode, k, max(Sk, 1), KV, B, ks, kKeys);
+  if (rc == 0)
+    rc = make_map<HD>(&tv, encode, v, max(Sk, 1), KV, B, vs, kKeys);
   if (rc != 0) return rc;
   // persistent: one block per SM, or fewer when there is less work
   int device = 0, n_sm = 0;
@@ -1020,12 +1091,27 @@ int dispatch_hd(int hd, const void* q, const void* k, const void* v,
     case 128:
       return launch<128>(q, k, v, out, qs, ks, vs, os, B, Sq, Sk, H, KV,
                          causal, window, scale_log2, stream);
+    case 256:
+      return launch<256>(q, k, v, out, qs, ks, vs, os, B, Sq, Sk, H, KV,
+                         causal, window, scale_log2, stream);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace hopper
+
+// blocks of `kernel` per SM at `threads` threads and `smem` bytes of
+// dynamic shared memory (the attribute set first, as a launch sets it)
+template <typename Kernel>
+int occupancy(Kernel kernel, int threads, int smem, int* blocks) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel,
+                                                        threads, smem);
+  return static_cast<int>(err);
+}
 
 }  // namespace
 
@@ -1046,7 +1132,7 @@ int fa_forward(const void* q, const void* k, const void* v, void* out,
                int causal, int window, int device, void* stream) {
   if (B < 0 || Sq < 0 || Sk < 0 || H <= 0 || KV <= 0 || H % KV != 0 ||
       window < 0 || (dtype != 0 && dtype != 1) ||
-      (hd != 32 && hd != 64 && hd != 128) || H > 65535 || B > 65535 ||
+      (hd != 32 && hd != 64 && hd != 128 && hd != 256) || H > 65535 || B > 65535 ||
       static_cast<long long>((Sq + 127) / 128) * H * B > 0x7fffffff)
     return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
@@ -1075,8 +1161,46 @@ int fa_smem_bytes(int hd) {
       return hopper::kSmemBytes<64>;
     case 128:
       return hopper::kSmemBytes<128>;
+    case 256:
+      return hopper::kSmemBytes<256>;
     default:
       return -1;
+  }
+}
+
+// Blocks of a launch of fa_forward (dtype 0: float32, 1: bfloat16) at head
+// dim hd that fit on one SM together, by cudaOccupancyMaxActiveBlocksPer-
+// Multiprocessor with the launch's dynamic shared memory, into *blocks.
+// Returns 0 or the cudaError_t (cudaErrorInvalidValue for an hd or dtype
+// fa_forward does not take).
+int fa_blocks_per_sm(int dtype, int hd, int* blocks) {
+  switch (dtype * 1000 + hd) {
+    case 32:
+      return occupancy(flash_fwd_kernel<float, 32>, kThreads,
+                       Smem<32>::kBytes, blocks);
+    case 64:
+      return occupancy(flash_fwd_kernel<float, 64>, kThreads,
+                       Smem<64>::kBytes, blocks);
+    case 128:
+      return occupancy(flash_fwd_kernel<float, 128>, kThreads,
+                       Smem<128>::kBytes, blocks);
+    case 256:
+      return occupancy(flash_fwd_kernel<float, 256>, kThreads,
+                       Smem<256>::kBytes, blocks);
+    case 1032:
+      return occupancy(hopper::fa_hopper_kernel<32>, hopper::kThreads,
+                       hopper::kSmemBytes<32>, blocks);
+    case 1064:
+      return occupancy(hopper::fa_hopper_kernel<64>, hopper::kThreads,
+                       hopper::kSmemBytes<64>, blocks);
+    case 1128:
+      return occupancy(hopper::fa_hopper_kernel<128>, hopper::kThreads,
+                       hopper::kSmemBytes<128>, blocks);
+    case 1256:
+      return occupancy(hopper::fa_hopper_kernel<256>, hopper::kThreads,
+                       hopper::kSmemBytes<256>, blocks);
+    default:
+      return cudaErrorInvalidValue;
   }
 }
 

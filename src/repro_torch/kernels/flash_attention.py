@@ -8,14 +8,17 @@ built from positions, ragged ``Sq`` and ``Sk``.
 
 On the H100 the operations bound it (4 hd flop per valid query-key pair
 per head, at the bf16 tensor-core rate). ``csrc/flash_attention.cu`` holds
-two kernels behind one C entry point, both for hd 32, 64 and 128, both
-reading K/V of the shared KV head through the tensors' strides:
+two kernels behind one C entry point, both for hd 32, 64, 128 and 256
+(gemma3-12b's), both reading K/V of the shared KV head through the
+tensors' strides:
 
 - **bfloat16** (the serving path): a persistent, warp-specialised kernel.
   A producer warpgroup brings Q, K and V by TMA (tensor maps over the
   tensors' own strides, zero fill past the ragged edges) into a two-stage
-  ring behind mbarriers; two consumer warpgroups of 64 query rows run both
-  products on the tensor cores (``wgmma``, bf16 in, float32 accumulators),
+  ring behind mbarriers (128-key tiles; 64-key tiles at hd 256, so that
+  the ring fits beside a 64 KB Q tile); two consumer warpgroups of 64
+  query rows run both products on the tensor cores (``wgmma``, bf16 in,
+  float32 accumulators),
   P rounded to bf16 in registers as the A operand of P V, and overlap
   each tile's softmax with the products (their own next-tile S and the
   other warpgroup's wgmmas, taken in turns).
@@ -28,8 +31,9 @@ header says what bounds each and what the design does about that.
 
 ``flash_attention`` takes the plain version for CPU (and shape-only
 ``meta``) tensors, launches a kernel for CUDA tensors, and raises for
-anything else; a CUDA tensor never falls back. ``LAUNCHES`` counts the
-kernel's launches; only a launch adds to it.
+anything else; a CUDA tensor never falls back (an hd outside
+``HEAD_DIMS`` raises). ``LAUNCHES`` counts the kernel's launches; only a
+launch adds to it. ``blocks_per_sm`` reports a launch's occupancy.
 """
 from __future__ import annotations
 
@@ -42,7 +46,7 @@ from . import ref
 
 SOURCE = B.CSRC / "flash_attention.cu"
 NVCC_FLAGS = B.BASE_FLAGS
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 128, 256)
 # fa_forward returns this plus the CUresult when a tensor map is refused
 ENCODE_ERROR = 10000
 
@@ -63,8 +67,19 @@ def _lib():
             "fa_forward": [P, P, P, P, I, I, I, I, I, I, I,
                            LL, LL, LL, LL, LL, LL, LL, LL, LL, LL, LL, LL,
                            I, I, I, P],
-            "fa_smem_bytes": [I]})
+            "fa_smem_bytes": [I],
+            "fa_blocks_per_sm": [I, I, ctypes.POINTER(I)]})
     return _LIB
+
+
+def blocks_per_sm(dtype: torch.dtype, hd: int) -> int:
+    """Blocks of the ``dtype`` kernel at head dim ``hd`` that one SM holds
+    at once (the CUDA occupancy calculator, with the launch's dynamic
+    shared memory)."""
+    out = ctypes.c_int(0)
+    B.check(_lib().fa_blocks_per_sm(int(dtype == torch.bfloat16), hd,
+                                    ctypes.byref(out)), "flash occupancy")
+    return out.value
 
 
 def flash_attention_plain(q, k, v, causal: bool = True, window: int = 0):

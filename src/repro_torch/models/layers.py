@@ -190,7 +190,11 @@ def decode_attention(params, cfg, x, cache, pos: int, use_rope=True):
     The new token's K/V are written into the cache as a ring buffer at
     ``pos % S`` and the query attends over the full (updated) cache. The
     port writes the slot in place (the reference returns a new cache), so
-    a step never copies the cache. Returns (out (B, 1, d), cache)."""
+    a step never copies the cache. A local layer's cache is a ring of
+    S = min(window, cache length) slots that prefill lays out the same
+    way, so after the write it holds the last S positions up to ``pos``:
+    with S = window, attending over every valid slot is the sliding
+    window, with no mask of its own. Returns (out (B, 1, d), cache)."""
     hd, H, KV = cfg.hd, cfg.n_heads, cfg.n_kv_heads
     int8 = getattr(cfg, "kv_dtype", "") == "int8"
     S = cache["k"].shape[1]

@@ -1,13 +1,28 @@
 """Public model API (the port of ``repro/models/model.py``):
 ``build_model(cfg, device) -> Model(init, prefill, decode, init_cache)``
-for the families ``dense`` and ``ssm``.
+for the families ``dense`` (with gemma3's sliding-window layers) and
+``ssm``.
 
 Batch contract: {"tokens": (B, S) int64, "labels": (B, S) int64}.
 
 Decode contract: the per-layer caches from ``prefill`` (or
 ``init_cache``), one token per sequence, the current position; returns
 next-token logits and the caches, whose ring-buffer slot was written in
-place.
+place. Decode writes position p at slot p % R of an R-slot cache and
+attends over the slots <= p.
+
+A local (``swa_mlp``) layer's cache is a ring of R = min(window,
+cache_len) slots (the prompt length S without ``cache_len``; a
+``cache_len`` below S counts as S), as the reference's ``init_cache``
+sizes it. Prefill writes the last min(window, S) positions, position p at
+slot p % R, and leaves the other slots zero, so decode agrees with
+prefill at every prompt length. The reference's prefill puts them at
+slots 0, 1, ... in order and never pads a local cache to ``cache_len``;
+that is the same cache whenever S is a multiple of the window, or S is
+at most the window and no ``cache_len`` is given. Elsewhere the
+reference's decode overwrites a position still inside the window (or
+reads positions in the wrong slots) and departs from its own prefill;
+the port's does not.
 
 ``loss_fn`` belongs to training and is not ported yet; nor are the
 families moe, hybrid, audio and vlm (ROADMAP Queue A item 11).
@@ -45,6 +60,20 @@ def _pad_seq(t, n):
     return F.pad(t, (0, 0) * (t.ndim - 2) + (0, n))
 
 
+def _ring(cache: dict, S: int, R: int) -> dict:
+    """A local layer's cache of the last n <= R positions S - n .. S - 1
+    (in order along dim 1) as a ring of R slots: position p at slot
+    p % R, the other slots zero."""
+    n = cache["k"].shape[1]
+    slots = torch.arange(S - n, S, device=cache["k"].device) % R
+    out = {}
+    for key, t in cache.items():
+        ring = t.new_zeros((t.shape[0], R) + tuple(t.shape[2:]))
+        ring[:, slots] = t
+        out[key] = ring
+    return out
+
+
 def build_model(cfg: ArchConfig, device=None) -> Model:
     """The model on ``device``: the GPU unless the caller asks for another
     (raises without one)."""
@@ -72,18 +101,22 @@ def build_model(cfg: ArchConfig, device=None) -> Model:
     def prefill(params, batch, cache_len=None):
         """cache_len: optionally allocate full-attention caches longer than
         the prompt (extra slots are masked in decode via the slot<=pos
-        rule)."""
+        rule), and local rings of min(window, cache_len) slots."""
         x = L.embed(params["embedding"], batch["tokens"]).to(dtype)
         x, caches = T.stack_forward(pattern, params["layers"], cfg, x,
                                     want_cache=True)
-        if cache_len is not None:
-            for kind, cache in zip(pattern, caches):
-                if kind == "attn_mlp":
-                    n = cache_len - cache["k"].shape[1]
-                    if n > 0:
-                        for key in ("k", "v", "k_scale", "v_scale"):
-                            if key in cache:
-                                cache[key] = _pad_seq(cache[key], n)
+        S = batch["tokens"].shape[1]
+        ring_len = min(cfg.window, max(S, cache_len or S))
+        for i, kind in enumerate(pattern):
+            cache = caches[i]
+            if kind == "swa_mlp":
+                caches[i] = _ring(cache, S, ring_len)
+            elif kind == "attn_mlp" and cache_len is not None:
+                n = cache_len - cache["k"].shape[1]
+                if n > 0:
+                    for key in ("k", "v", "k_scale", "v_scale"):
+                        if key in cache:
+                            cache[key] = _pad_seq(cache[key], n)
         x = L.rmsnorm(params["final_norm"], x)
         last = L.logits_fn(params["embedding"], x[:, -1:], cfg)
         return last, caches
@@ -109,12 +142,14 @@ def build_model(cfg: ArchConfig, device=None) -> Model:
             return torch.zeros(shape, dtype=dt, device=dev)
 
         def one(kind):
-            if kind == "attn_mlp":
-                out = {"k": zeros((B, seq_len, KV, hd), kv_store),
-                       "v": zeros((B, seq_len, KV, hd), kv_store)}
+            if kind in T.ATTENTION_KINDS:
+                S = seq_len if kind == "attn_mlp" else min(cfg.window,
+                                                           seq_len)
+                out = {"k": zeros((B, S, KV, hd), kv_store),
+                       "v": zeros((B, S, KV, hd), kv_store)}
                 if int8:
-                    out["k_scale"] = zeros((B, seq_len, KV, 1), torch.bfloat16)
-                    out["v_scale"] = zeros((B, seq_len, KV, 1), torch.bfloat16)
+                    out["k_scale"] = zeros((B, S, KV, 1), torch.bfloat16)
+                    out["v_scale"] = zeros((B, S, KV, 1), torch.bfloat16)
                 return out
             if kind == "rwkv":
                 hr = cfg.rwkv_head_dim

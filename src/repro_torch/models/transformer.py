@@ -2,10 +2,16 @@
 
 Layer "kinds" (composable sublayer patterns):
   attn_mlp   pre-norm GQA attention + SwiGLU MLP        (dense / global)
+  swa_mlp    sliding-window attention + MLP             (gemma3 local)
   rwkv       RWKV6 time-mix + channel-mix               (rwkv6)
-and, still to port (ROADMAP Queue A item 11), swa_mlp (gemma3 local),
-attn_moe (llama4 / qwen3 / jamba), mamba_mlp and mamba_moe (jamba),
-cross_mlp (whisper decoder) and enc_mlp (whisper encoder).
+and, still to port (ROADMAP Queue A item 11), attn_moe (llama4 / qwen3 /
+jamba), mamba_mlp and mamba_moe (jamba), cross_mlp (whisper decoder) and
+enc_mlp (whisper encoder).
+
+``swa_mlp`` has ``attn_mlp``'s parameters and decode; its prefill runs the
+flash kernel with ``window=cfg.window`` and keeps the last ``window`` keys
+and values as its cache, as the reference does. ``models/model.py`` lays
+them out as a ring that decode can trust at every prompt length.
 
 The reference stacks each cycle position's parameters along a leading
 axis and runs the stack under ``jax.lax.scan``; the port keeps one
@@ -17,7 +23,8 @@ from __future__ import annotations
 from . import layers as L
 from . import rwkv as R
 
-PORTED_KINDS = ("attn_mlp", "rwkv")
+PORTED_KINDS = ("attn_mlp", "swa_mlp", "rwkv")
+ATTENTION_KINDS = ("attn_mlp", "swa_mlp")
 
 
 def _not_ported(kind):
@@ -31,7 +38,7 @@ def _not_ported(kind):
 # ---------------------------------------------------------------------------
 
 def layer_init(kind, gen, cfg, dtype):
-    if kind == "attn_mlp":
+    if kind in ATTENTION_KINDS:
         dev = gen.device
         return {"norm1": L.rmsnorm_init(cfg.d_model, dtype, dev),
                 "attn": L.attention_init(gen, cfg, dtype),
@@ -43,13 +50,18 @@ def layer_init(kind, gen, cfg, dtype):
 
 
 def layer_forward(kind, params, cfg, x, want_cache=False):
-    """Full-sequence forward. Returns (x, cache_or_None)."""
-    if kind == "attn_mlp":
+    """Full-sequence forward. Returns (x, cache_or_None); a local layer's
+    cache holds the last ``cfg.window`` positions, in order."""
+    if kind in ATTENTION_KINDS:
+        window = cfg.window if kind == "swa_mlp" else 0
         h, k, v = L.full_seq_attention(
-            params["attn"], cfg, L.rmsnorm(params["norm1"], x), causal=True)
+            params["attn"], cfg, L.rmsnorm(params["norm1"], x), causal=True,
+            window=window)
         x = x + h
         cache = None
         if want_cache:
+            if window:
+                k, v = k[:, -window:], v[:, -window:]
             if getattr(cfg, "kv_dtype", "") == "int8":
                 kq, ks = L.kv_quantize(k)
                 vq, vs = L.kv_quantize(v)
@@ -66,7 +78,7 @@ def layer_forward(kind, params, cfg, x, want_cache=False):
 
 def layer_decode(kind, params, cfg, x, cache, pos):
     """Single-token decode. x: (B, 1, d). Returns (x, new_cache)."""
-    if kind == "attn_mlp":
+    if kind in ATTENTION_KINDS:
         h, new_cache = L.decode_attention(
             params["attn"], cfg, L.rmsnorm(params["norm1"], x), cache, pos)
         x = x + h

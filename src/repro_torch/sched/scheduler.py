@@ -185,6 +185,7 @@ class _PartialBuffer:
         self.comm_bytes = None
         self.collective_payload_bytes = None
         self.metric_sums = None
+        self.metric_means = None  # the one partial's own, while it is alone
         self.staleness = []
         self.retries = 0        # failed cohort uplink attempts (billed)
         self.abandoned = 0      # cohorts whose retry ladder ran out
@@ -207,6 +208,8 @@ class _PartialBuffer:
             self.collective_payload_bytes = (
                 partial.collective_payload_bytes if prev is None
                 else prev + partial.collective_payload_bytes)
+        self.metric_means = (partial.metric_means
+                             if self.metric_sums is None else None)
         if self.metric_sums is None:
             self.metric_sums = dict(partial.metric_sums)
         else:
@@ -429,12 +432,14 @@ class CohortScheduler:
         if buffer.collective_payload_bytes is not None:
             m["collective_payload_bytes"] = torch.tensor(
                 buffer.collective_payload_bytes, dtype=torch.float32)
-        # the sum over n: step's torch.mean over the client dim (bit for
-        # bit on the CPU, which sums then divides; CUDA's mean multiplies
-        # by 1/n, so there a client metric may part by an ulp)
-        sums = buffer.metric_sums or {}
-        _merge_client_metrics(m, {k: v / spec.n_clients
-                                  for k, v in sums.items()})
+        # one cohort of all n clients lands step's own torch.mean, bit for
+        # bit (CUDA's mean multiplies by 1/n, so the sum over n may part
+        # from it by an ulp); cohorts land the sum of their sums over n
+        means = buffer.metric_means
+        if means is None:
+            means = {k: v / spec.n_clients
+                     for k, v in (buffer.metric_sums or {}).items()}
+        _merge_client_metrics(m, means)
         if self.problem.loss is not None and eval_batch is not None:
             if "loss" in m:
                 raise ValueError(
@@ -471,6 +476,9 @@ class CohortScheduler:
             "collective_payload_bytes": (
                 None if partial.collective_payload_bytes is None
                 else float(partial.collective_payload_bytes)),
+            "metric_means": (None if partial.metric_means is None else
+                             {k: _host(v)
+                              for k, v in partial.metric_means.items()}),
         }
         if self._defer_delivery and self.spec.use_variates:
             # a deferred delivery scatters v_i when it lands, which may be
@@ -488,13 +496,16 @@ class CohortScheduler:
             v_i = tree_unflatten(tdef, [torch.as_tensor(x).to(dev)
                                         for x in enc["v_i"]])
         cpb = enc["collective_payload_bytes"]
+        means = enc.get("metric_means")
         return CohortPartial(
             agg=agg, v_i=v_i, n_active=torch.as_tensor(enc["n_active"]).to(
                 dev),
             comm_bytes=torch.as_tensor(enc["comm_bytes"]).to(dev),
             metric_sums={k: torch.as_tensor(v).to(dev)
                          for k, v in enc["metric_sums"].items()},
-            collective_payload_bytes=None if cpb is None else float(cpb))
+            collective_payload_bytes=None if cpb is None else float(cpb),
+            metric_means=None if means is None else {
+                k: torch.as_tensor(v).to(dev) for k, v in means.items()})
 
     @staticmethod
     def _encode_wave(wave) -> Optional[dict]:

@@ -8,8 +8,9 @@ float32 tolerances (2e-4 / 2e-5) and, in bfloat16, a few bf16 ulps
 ``models/layers.py`` (rmsnorm, rope, gqa_core, the int8 KV quantizer,
 decode attention over a bf16 and an int8 ring-buffer cache, full-sequence
 attention) are held against ``repro.models.layers``. An emulation of the
-bf16 CUDA kernel's order of work (128-key tiles, P rounded to bf16 before
-P V) is held against the Pallas kernel at the kernel's bf16 limit.
+bf16 CUDA kernel's order of work (128-key tiles, 64-key tiles at hd 256,
+P rounded to bf16 before P V) is held against the Pallas kernel at the
+kernel's bf16 limit.
 Inputs come from a numpy seed and go through both packages.
 ``tests/test_torch_cuda_lm.py`` holds the CUDA kernels against the plain
 version on the card."""
@@ -82,6 +83,20 @@ def test_flash_causal_matches_pallas(B, Sq, Sk, H, KV, hd, qb, kb):
     np.testing.assert_allclose(np_of(got), np.asarray(want), **F32_TOL)
 
 
+@pytest.mark.parametrize("B,Sq,H,KV,window", [
+    (1, 128, 2, 1, 0),        # causal
+    (1, 128, 2, 1, 48),       # sliding window
+    (2, 200, 4, 2, 64),       # ragged against the 128-row block, window
+])
+def test_flash_hd256_matches_pallas(B, Sq, H, KV, window):
+    """gemma3-12b's head dim, 256: the plain version against the Pallas
+    kernel (interpret mode), causal, with and without a window."""
+    (jq, tq), (jk, tk), (jv, tv) = _qkv(B, Sq, Sq, H, KV, 256, seed=12)
+    want = flash_attention_pallas(jq, jk, jv, causal=True, window=window)
+    got = tops.flash_attention(tq, tk, tv, causal=True, window=window)
+    np.testing.assert_allclose(np_of(got), np.asarray(want), **F32_TOL)
+
+
 @pytest.mark.parametrize("tiles", [{"q_block": 64}, {"kv_block": 256}])
 def test_flash_refuses_tpu_tile_sizes(tiles):
     (_, tq), (_, tk), (_, tv) = _qkv(1, 64, 64, 2, 1, 32)
@@ -110,15 +125,23 @@ def test_flash_bfloat16_matches_pallas():
     np.testing.assert_allclose(_f32(got), _f32(want), **KERNEL_BF16_TOL)
 
 
+def _key_tile(hd):
+    """Keys per K/V tile of the bf16 CUDA kernel (``Tile<HD>::kKeys`` in
+    ``csrc/flash_attention.cu``): 128, or 64 at hd 256."""
+    return 64 if hd > 128 else 128
+
+
 def _hopper_kernel_order(q, k, v, causal, window):
     """The bf16 CUDA kernel's order of work, emulated in float32 on the
     CPU: scores of the bf16 inputs in base 2 (times log2(e) / sqrt(hd)),
-    masked to -1e30, taken over 128-key tiles in order with the online max
-    and sum in float32; each tile's P rounded to bf16 before P V, the
-    accumulator rescaled by exp2(m_prev - m_new); O / max(l, 1e-30) rounded
-    to bf16. Rows are independent, so the kernel's 128-row query tiles and
-    its skipping of tiles that mask every row of one do not change this."""
+    masked to -1e30, taken over the kernel's key tiles in order with the
+    online max and sum in float32; each tile's P rounded to bf16 before
+    P V, the accumulator rescaled by exp2(m_prev - m_new); O / max(l,
+    1e-30) rounded to bf16. Rows are independent, so the kernel's 128-row
+    query tiles and its skipping of tiles that mask every row of one do
+    not change this."""
     B, Sq, H, hd = q.shape
+    kt = _key_tile(hd)
     Sk, G = k.shape[1], H // k.shape[2]
     qf = q.float().transpose(1, 2)                           # (B, H, Sq, hd)
     kf = k.float().repeat_interleave(G, dim=2).transpose(1, 2)
@@ -129,9 +152,9 @@ def _hopper_kernel_order(q, k, v, causal, window):
     l = torch.zeros((B, H, Sq, 1))
     o = torch.zeros((B, H, Sq, hd))
     qpos = torch.arange(Sq)[:, None]
-    for k0 in range(0, Sk, 128):
-        kpos = torch.arange(k0, min(k0 + 128, Sk))[None, :]
-        s = (qf @ kf[:, :, k0:k0 + 128].transpose(-1, -2)) * scale
+    for k0 in range(0, Sk, kt):
+        kpos = torch.arange(k0, min(k0 + kt, Sk))[None, :]
+        s = (qf @ kf[:, :, k0:k0 + kt].transpose(-1, -2)) * scale
         ok = torch.ones(Sq, kpos.shape[1], dtype=torch.bool)
         if causal:
             ok &= kpos <= qpos
@@ -143,7 +166,7 @@ def _hopper_kernel_order(q, k, v, causal, window):
         p = torch.exp2(s - m_new)
         l = l * corr + p.sum(-1, keepdim=True)
         pb = p.to(torch.bfloat16).float()
-        o = o * corr + pb @ vf[:, :, k0:k0 + 128]
+        o = o * corr + pb @ vf[:, :, k0:k0 + kt]
         m = m_new
     out = o / torch.clamp(l, min=1e-30)
     return out.transpose(1, 2).to(torch.bfloat16)
@@ -153,6 +176,8 @@ def _hopper_kernel_order(q, k, v, causal, window):
     (1, 512, 512, 8, 2, 64, True, 0),      # causal, GQA 4
     (2, 200, 328, 4, 4, 128, False, 0),    # non-causal, ragged Sq and Sk
     (1, 384, 384, 8, 1, 32, True, 200),    # window ending inside a tile
+    (1, 256, 256, 4, 2, 256, True, 0),     # hd 256: 64-key tiles, causal
+    (1, 200, 200, 2, 1, 256, True, 100),   # hd 256, window inside a tile
 ])
 def test_hopper_kernel_arithmetic_within_bf16_limit(B, Sq, Sk, H, KV, hd,
                                                     causal, window):

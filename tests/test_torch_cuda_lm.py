@@ -1,5 +1,8 @@
-"""The port's flash-attention and RWKV6 kernels against their plain
-PyTorch versions, on the card. Every test here is marked ``cuda`` and
+"""The port's flash-attention (hd 32 to 256) and RWKV6 kernels against
+their plain PyTorch versions, on the card, and the serve paths that run
+them (each arch's smoke preset; gemma3-12b at full width, one cycle of
+six layers and, through the example, all 48). Every test here is marked
+``cuda`` and
 skips without a CUDA device; the module imports no JAX, so it also runs
 on a machine without it:
 
@@ -42,14 +45,14 @@ def _close(got, want, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
-@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("hd", [32, 64, 128, 256])
 @pytest.mark.parametrize("B,Sq,Sk,H,KV,causal,window", [
     (2, 200, 200, 4, 2, True, 0),       # ragged against the 64-row tile
     (1, 256, 256, 8, 2, True, 48),      # sliding window
     (2, 77, 130, 4, 4, False, 0),       # non-causal, Sq != Sk
     (1, 130, 77, 6, 2, True, 0),        # causal, Sq > Sk
-    # the bf16 kernel's 128-row / 128-key tiles: one row short, exact and
-    # one row over, GQA groups 1, 4 and 8
+    # the bf16 kernel's 128-row / 128-key tiles (64-key at hd 256): one
+    # row short, exact and one row over, GQA groups 1, 4 and 8
     (1, 127, 129, 4, 4, False, 0),
     (2, 128, 128, 8, 2, True, 0),
     (1, 129, 127, 8, 1, True, 0),       # causal, Sq > Sk
@@ -81,11 +84,17 @@ def test_flash_reads_strided_inputs():
     _close(got, want, torch.bfloat16)
 
 
-def test_flash_refuses_unsupported_head_dim():
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_flash_refuses_unsupported_head_dim(dtype):
+    """An hd the kernel does not take (96) raises on a CUDA tensor: no
+    launch, and no fall back to the plain version."""
     dev = _cuda()
-    q = torch.zeros((1, 8, 2, 96), device=dev)
+    q = torch.zeros((1, 8, 2, 96), device=dev, dtype=dtype)
+    before = tfa.LAUNCHES["flash_attention"]
     with pytest.raises(ValueError, match="hd"):
         tfa.flash_attention(q, q[:, :, :1], q[:, :, :1])
+    assert tfa.LAUNCHES["flash_attention"] == before
 
 
 def _check_rwkv(B, S, H, hd, dtype, w):
@@ -147,10 +156,12 @@ def test_launch_counters_move():
     assert trs.LAUNCHES["rwkv_scan"] == rs_before + 1
 
 
-@pytest.mark.parametrize("arch", ["rwkv6-3b", "phi3-medium-14b"])
+@pytest.mark.parametrize("arch", ["rwkv6-3b", "phi3-medium-14b",
+                                  "gemma3-12b"])
 def test_serve_smoke_preset(arch):
     """The port's default serve command (``--preset smoke``, the reduced
-    float32 config: rwkv6's head dim 16, phi3's 32) on the card through
+    float32 config: rwkv6's head dim 16, phi3's and gemma3's 32) on the
+    card through
     ``launch/serve.py``: ids in [0, vocab), finite logits, and one kernel
     launch per layer in the one prefill."""
     from repro_torch import configs
@@ -164,4 +175,48 @@ def test_serve_smoke_preset(arch):
     toks, info = serve.main(["--arch", arch, "--device", "cuda"])
     assert counter[key] == cfg.n_layers
     assert info["logits_finite"]
+    assert bool(((toks >= 0) & (toks < cfg.vocab)).all())
+
+
+def test_gemma3_one_cycle_at_full_width():
+    """gemma3-12b at full width, bf16, cut to one cycle of six layers
+    (five local, window 1024, and one global; hd 256): batch 2, a
+    1500-token prompt (no multiple of the window), 4 greedy tokens; one
+    flash launch per layer in the prefill, ids in [0, vocab), finite
+    logits."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.launch.serve import serve
+    from repro_torch.models.model import build_model, make_batch
+
+    _cuda()
+    cfg = dataclasses.replace(configs.get("gemma3-12b"), n_layers=6)
+    model = build_model(cfg, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = model.init(gen)
+    batch = make_batch(gen, cfg, 2, 1500)
+    tfa.LAUNCHES["flash_attention"] = 0
+    toks, info = serve(model, params, batch, 4)
+    assert tfa.LAUNCHES["flash_attention"] == 6
+    assert info["logits_finite"]
+    assert toks.shape == (2, 4)
+    assert bool(((toks >= 0) & (toks < cfg.vocab)).all())
+
+
+def test_serve_batched_example_full_preset():
+    """``python -m repro_torch.examples.serve_batched --arch gemma3-12b
+    --preset full`` (all 48 layers at full width, bf16, random weights)
+    through its ``main``, with a short prompt: one flash launch per
+    layer, ids in [0, vocab), finite logits."""
+    from repro_torch import configs
+    from repro_torch.examples import serve_batched
+
+    _cuda()
+    cfg = configs.get("gemma3-12b")
+    tfa.LAUNCHES["flash_attention"] = 0
+    toks, info = serve_batched.main(["--arch", "gemma3-12b", "--preset",
+                                     "full", "--batch", "2", "--prompt-len",
+                                     "300", "--new-tokens", "3"])
+    assert tfa.LAUNCHES["flash_attention"] == cfg.n_layers
+    assert info["logits_finite"] and toks.shape == (2, 3)
     assert bool(((toks >= 0) & (toks < cfg.vocab)).all())

@@ -97,6 +97,42 @@ def test_single_cohort_bit_identical_to_run_with_a_cuda_generator(card):
         assert torch.equal(m_r[k], m3[k]), k
 
 
+def test_client_metric_through_one_full_cohort_bit_for_bit(card):
+    """A problem's per-client metric (``s_bar_metrics``) over n = 12
+    clients, not a power of two, in one cohort of all 12: the scheduler
+    lands ``step``'s own ``torch.mean`` (on CUDA a mean multiplies by
+    1 / n, where a sum over n divides), so every metric of every round is
+    ``api.run``'s bit for bit."""
+    n, dim = 12, 32
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    X = torch.randn((n, 16, dim), generator=gen, device="cuda")
+    w = (torch.linspace(-1, 1, dim, device="cuda")
+         + 2.0 * torch.arange(n, device="cuda")[:, None])
+    Y = torch.einsum("nbp,np->nb", X, w)
+
+    def loss(batch, theta):
+        return 0.5 * torch.mean((batch[0] @ theta - batch[1]) ** 2)
+
+    base = api.as_problem(quadratic_for_objective(loss, rho=0.05))
+
+    def s_bar_metrics(batch, view):
+        s_i = base.s_bar(batch, view)
+        return s_i, {"s_sum": torch.sum(s_i)}
+
+    problem = api.as_problem(base, s_bar_metrics=s_bar_metrics)
+    spec = api.FederationSpec(n_clients=n, participation=0.75, alpha=0.1)
+    x0 = torch.zeros(dim, device="cuda")
+    _, m_ref = api.run(problem, x0, lambda t, g: (X, Y), 0.3, spec=spec,
+                       key=3, n_rounds=ROUNDS)
+    _, _, m = CohortScheduler(problem, spec, cohort_size=n).run(
+        x0, lambda t, g, ids: (X[torch.as_tensor(ids, device="cuda")],
+                               Y[torch.as_tensor(ids, device="cuda")]),
+        0.3, key=3, n_rounds=ROUNDS)
+    assert m["s_sum"].shape == (ROUNDS,)
+    for k in m_ref:
+        assert torch.equal(m_ref[k], m[k]), k
+
+
 def test_async_kill_and_resume_on_the_card(card, tmp_path):
     problem, batches, x0 = _problem()
     _, data_fn = _data(batches)
