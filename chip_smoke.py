@@ -5,11 +5,11 @@
     python3 chip_smoke.py --profile  # and a torch.profiler breakdown
 
 Run from the root of a checkout on a machine with an NVIDIA H100 and the
-CUDA toolkit. It builds the three kernel sources of
+CUDA toolkit. It builds the five kernel sources of
 ``src/repro_torch/kernels/csrc/`` (one ``nvcc`` each, started together),
 checks every kernel against its plain PyTorch version at the main paths'
-shapes and times both, then drives the port's two paths through their
-entry points at full width and checks what comes out:
+shapes and times both, then drives the port's paths through their entry
+points at full width and checks what comes out:
 
 1. one FedMM round of Algorithm 2 (``repro_torch.api.run``/``step`` and
    the ``Compressor`` methods), which runs the quantizer kernels; then
@@ -47,7 +47,14 @@ entry points at full width and checks what comes out:
    dims 16, 32 and 64 for 100 rounds, gated at d = 16, with 10 FedMM-OT
    rounds run on the GPU and on the CPU from the same draws. These run
    after phase 1 and before phase 2; their leaves are too small for the
-   kernel route, so they launch no kernel of the port.
+   kernel route, so they launch no kernel of the port;
+4. training (the ``train`` phase, after serving): the backward kernels of
+   flash attention and WKV6 against their plain versions, FedMM training
+   of gemma3-12b (6 layers) and rwkv6-3b (8 layers) at full width through
+   ``repro_torch.fed.trainer.make_train_step`` (the forward and backward
+   kernels in every layer, ``qb_encode`` on every leaf of at least 65,536
+   elements), ``repro_torch.launch.train`` at the ``100m`` and ``smoke``
+   presets, and three smoke rounds on the card against the CPU.
 
 Each phase prints one JSON line; the last line is ``{"ok": true,
 "device": {...}}``. Any failed check raises and the script exits
@@ -69,6 +76,7 @@ one projection instead of the model's 40 layers x 7 matrices.
 """
 from __future__ import annotations
 
+import ctypes
 import json
 import os
 import re
@@ -118,6 +126,8 @@ REPLACES = {
     "quantize_seeded": "src/repro/kernels/quantize_block.py:195",
     "encode": "src/repro/kernels/quantize_block.py:257",
     "encode_seeded": "src/repro/kernels/quantize_block.py:247",
+    # groups below 128: the reference encodes them in jnp, not in :247
+    "encode_seeded_small": "src/repro/core/compression.py:698",
     "decode_reduce": "src/repro/kernels/quantize_block.py:318",
     "flash_attention": "src/repro/kernels/flash_attention.py:93",
     "rwkv_scan": "src/repro/kernels/rwkv_scan.py:68",
@@ -129,7 +139,10 @@ REPLACES = {
 ROW_COUNTS = {"quantize": ("quantize", "quantize_block")}
 SOURCE = "src/repro_torch/kernels/csrc/quantize_block.cu"
 LM_SOURCES = {"flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
-              "rwkv_scan": "src/repro_torch/kernels/csrc/rwkv_scan.cu"}
+              "rwkv_scan": "src/repro_torch/kernels/csrc/rwkv_scan.cu",
+              "flash_attention_bwd":
+                  "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+              "rwkv_scan_bwd": "src/repro_torch/kernels/csrc/rwkv_scan_bwd.cu"}
 
 # the figures phase: the paper's --full sizes (configs/dictlearn.py, the
 # reference's benchmarks/run.py), the Fig. 2 alphas, and the GPU-vs-CPU
@@ -245,11 +258,15 @@ def bits_equal(a, b) -> bool:
 # phase 2: each kernel against its plain version, at the main path's shapes
 # ---------------------------------------------------------------------------
 
+SMALL_GROUP_SHAPE, SMALL_GROUP = (262144, 3840), 8
+
+
 def kernel_checks(qb):
     """Each kernel on the w leaf's (358400, 256) rows (the reduce over a
     16-client stack of them; the flat-stream route on the same elements as
-    one stream) against its plain version: bits, times and the bound.
-    Returns one record per kernel."""
+    one stream; the small-group encode on the train path's largest leaf)
+    against its plain version: bits, times and the bound. Returns one
+    record per kernel."""
     import torch
     from repro_torch.kernels import ops as kernel_ops
     device, g = "cuda", BLOCK
@@ -312,6 +329,27 @@ def kernel_checks(qb):
         record(name, kern, plain, err, nbytes, ops, iters=20)
         del got, want
 
+    # the encode with a group below 128 at the train path's largest leaf:
+    # gemma3-12b's embedding (262144, 3840), shard-safe group 8
+    xe = torch.randn(SMALL_GROUP_SHAPE, generator=gen, device=device)
+    xe[3, :SMALL_GROUP] = 0.0                    # one all-zero group
+    ge, ne = SMALL_GROUP, xe.numel()
+    kern = lambda: qb.quantize_encode_grouped(xe, bits=BITS, group=ge,
+                                              seed=seed)
+    plain = lambda: qb.quantize_encode_grouped_plain(xe, bits=BITS, group=ge,
+                                                     seed=seed)
+    got, want = kern(), plain()
+    require(all(bits_equal(a, b) for a, b in zip(got, want)),
+            "encode_seeded_small: kernel differs from its plain version")
+    err = max(max_abs_err(a, b) for a, b in zip(got, want))
+    del got, want
+    record("encode_seeded_small", kern, plain, err, 5 * ne + 4 * ne // ge,
+           (OPS_ROUND + OPS_HASH) * ne, iters=10)
+    results["encode_seeded_small"].update(shape=list(SMALL_GROUP_SHAPE),
+                                          group=ge)
+    del xe
+    torch.cuda.empty_cache()
+
     # the reduce over a C-client stack of payloads encoded by the kernel
     rows = x.shape[0]
     codes = torch.empty((N_CLIENTS, rows, g), dtype=torch.int8, device=device)
@@ -370,10 +408,12 @@ def loss_fn(batch, theta):
 
 
 def drive_slice():
-    """The main path: ROUNDS vmap rounds with the hash dither, the same
-    rounds with the in-kernel dither, one round's drift and payload through
-    the Compressor's entry points, and one scan round. Returns the
-    phase's JSON record."""
+    """The main path: ROUNDS vmap rounds with the hash dither (made in the
+    kernel on the card), the same rounds with the in-kernel dither, with
+    the hash streamed through the plain route (the bits before the kernel
+    route made the hash itself) and with the uniform dither (streamed into
+    the kernels), one round's drift and payload through the Compressor's
+    entry points, and one scan round. Returns the phase's JSON record."""
     import torch
     from repro_torch import api
     from repro_torch.core import compression as C
@@ -390,28 +430,39 @@ def drive_slice():
           "b": torch.zeros((D_FF,), device=device)}
     eval_batch = (xs.reshape(-1, D_MODEL), ys.reshape(-1, D_FF))
 
-    def spec_for(dither):
+    def spec_for(dither, plain=False):
+        # plain: no leaf reaches the kernels (the oracle on every leaf)
+        kw = {"kernel_threshold": 1 << 62} if plain else {}
         return api.FederationSpec(
             n_clients=N_CLIENTS, participation=PARTICIPATION, alpha=ALPHA,
             variates="zero", compressor=C.block_quant(BITS, BLOCK,
-                                                      dither=dither))
+                                                      dither=dither, **kw))
 
-    def run(dither, n_rounds=ROUNDS):
+    def run(dither, n_rounds=ROUNDS, plain=False):
         torch.cuda.reset_peak_memory_stats()
         sync()
         t0 = time.perf_counter()
         state, hist = api.run(problem, x0, (xs, ys), GAMMA,
-                              spec=spec_for(dither), key=SEED,
+                              spec=spec_for(dither, plain), key=SEED,
                               n_rounds=n_rounds, eval_batch=eval_batch,
                               device=device, client_mode="vmap")
         sync()
         secs = time.perf_counter() - t0
         return state, hist, secs, torch.cuda.max_memory_allocated()
 
+    def same_run(a, b, what):
+        (state_a, hist_a), (state_b, hist_b) = a, b
+        for x, y in zip(tree_leaves(tuple(state_a)[:3]),
+                        tree_leaves(tuple(state_b)[:3])):
+            require(bits_equal(x, y), f"{what}: the states differ")
+        for k in hist_a:
+            require(torch.equal(hist_a[k], hist_b[k]),
+                    f"{what}: metric {k} differs")
+
     out = {"phase": "slice"}
     # one untimed round of each dither first: cuBLAS and torch.func set-up
     # is paid here, not in the timed rounds
-    for dither in ("hash", "kernel"):
+    for dither in ("hash", "kernel", "uniform"):
         _, _, secs, _ = run(dither, 1)
         out[f"seconds_first_round_{dither}"] = secs
     qb.reset_launches()
@@ -425,10 +476,46 @@ def drive_slice():
     n_kernel_leaves = sum(1 for leaf in tree_leaves(x0)
                           if leaf.numel() >= C.KERNEL_DISPATCH_MIN)
     expect = ROUNDS * N_CLIENTS * n_kernel_leaves
+    require(qb.LAUNCHES["encode_seeded"] == expect
+            and qb.LAUNCHES["encode"] == 0,
+            f"hash-dither encode launches {qb.LAUNCHES} != rounds x "
+            f"clients x kernel-route leaves, all with the in-kernel dither")
+    enc_after_run = qb.LAUNCHES["encode_seeded"]
+
+    # -- the same rounds on the plain route, the hash streamed in plain
+    # PyTorch: the bits before the kernel made the hash dither
+    state_p, hist_p, secs_p, peak_p = run("hash", plain=True)
+    same_run((state_h, hist_h), (state_p, hist_p),
+             "the hash made in the kernel vs the hash streamed, plain")
+    require(qb.LAUNCHES["encode_seeded"] == enc_after_run
+            and qb.LAUNCHES["encode"] == 0, "the plain route launched")
+    out.update(seconds_per_round_hash_plain=secs_p / ROUNDS,
+               peak_bytes_hash_plain=peak_p, hash_equals_plain=True)
+    del state_p, hist_p
+
+    # -- the same rounds with the dither made in the kernel -------------
+    enc_before = qb.LAUNCHES["encode_seeded"]
+    state_k, hist_k, secs_k, peak_k = run("kernel")
+    same_run((state_h, hist_h), (state_k, hist_k),
+             "dither='kernel' vs dither='hash'")
+    require(qb.LAUNCHES["encode_seeded"] - enc_before == expect,
+            f"in-kernel-dither encode launches {qb.LAUNCHES}")
+    out.update(seconds_per_round_kernel=secs_k / ROUNDS,
+               peak_bytes_kernel=peak_k, kernel_equals_hash=True)
+    del state_k, hist_k
+
+    # -- the same rounds with the uniform dither, streamed into the
+    # kernels (its own draws: another trajectory)
+    state_u, hist_u, secs_u, peak_u = run("uniform")
+    loss_u = hist_u["loss"].tolist()
+    require(all(map(lambda v: v == v and abs(v) < float("inf"), loss_u))
+            and loss_u[-1] < loss_u[0],
+            f"uniform-dither loss not finite or not falling: {loss_u}")
     require(qb.LAUNCHES["encode"] == expect,
-            f"encode launches {qb.LAUNCHES['encode']} != rounds x clients "
-            f"x kernel-route leaves")
-    enc_after_run = qb.LAUNCHES["encode"]
+            f"streamed encode launches {qb.LAUNCHES}")
+    out.update(seconds_per_round_uniform=secs_u / ROUNDS,
+               peak_bytes_uniform=peak_u, loss_uniform=loss_u)
+    del state_u, hist_u
 
     # comm_bytes against the buffers of one measured client payload
     comp_h = spec_for("hash").compressor
@@ -452,21 +539,6 @@ def drive_slice():
         w_payload_scales_bytes=4 * w_payload.scales.numel())
     del probe, w_payload
 
-    # -- the same rounds with the dither made in the kernel -------------
-    state_k, hist_k, secs_k, peak_k = run("kernel")
-    for a, b in zip(tree_leaves(tuple(state_h)[:3]),
-                    tree_leaves(tuple(state_k)[:3])):
-        require(bits_equal(a, b), "dither='kernel' state differs from "
-                "dither='hash'")
-    for k in hist_h:
-        require(torch.equal(hist_h[k], hist_k[k]),
-                f"dither='kernel' metric {k} differs from dither='hash'")
-    require(qb.LAUNCHES["encode_seeded"] == expect,
-            "in-kernel-dither encode launches")
-    out.update(seconds_per_round_kernel=secs_k / ROUNDS,
-               peak_bytes_kernel=peak_k, kernel_equals_hash=True)
-    del state_k, hist_k
-
     # -- one round's drift and payload through the Compressor -----------
     state = state_h
     view = problem.T(state.x)
@@ -482,15 +554,22 @@ def drive_slice():
                         tree_map(lambda v: v[c], state.v_i))
 
     d0 = drift(0)
-    for dither in ("hash", "kernel"):
-        comp = spec_for(dither).compressor
-        key = seeds[0].tolist()
+    key = seeds[0].tolist()
+    for dither in ("hash", "kernel", "plain", "uniform"):
+        comp = (spec_for("hash", plain=True) if dither == "plain"
+                else spec_for(dither)).compressor
         applied = comp.apply(key, d0)
         decoded = comp.decode(comp.encode(key, d0))
         for k in applied:
             require(bits_equal(applied[k], decoded[k]),
                     f"decode(encode(x)) != apply(x) for {k}, {dither}")
-    del d0, applied, decoded
+        if dither == "hash":
+            applied_h = applied
+        if dither != "uniform":
+            for k in applied:
+                require(bits_equal(applied[k], applied_h[k]),
+                        f"apply(x) with the {dither} dither != the hash's")
+    del d0, applied, decoded, applied_h
     parts = []
     for c in range(N_CLIENTS):
         parts.append(comp_h.encode(seeds[c].tolist(), drift(c)))
@@ -543,8 +622,9 @@ def drive_slice():
                encode_launches_hash_run=enc_after_run,
                launches=launches, launch_counts=dict(qb.LAUNCHES))
     for name, count in launches.items():
-        require(count > 0, f"kernel {name} was not launched on the main "
-                f"path")
+        # groups below 128 are the train path's (the slice's are 256)
+        require(count > 0 or name.endswith("_small"), f"kernel {name} was "
+                f"not launched on the main path")
     return out
 
 
@@ -2096,6 +2176,511 @@ def profile_fig3_rounds(card: str) -> dict:
 # --profile: where the time goes
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# the train phase: the backward kernels, FedMM training at full width, the
+# entry point, the card against the CPU
+# ---------------------------------------------------------------------------
+
+# backward kernel against plain version: max |got - want| <= tol max |want|
+# per output; both accumulate in float32, the sums of a backward pass in
+# another order over thousands of terms; bf16 outputs are rounded to bf16
+BWD_TOL = {"float32": 1e-3, "bfloat16": 2e-2}
+# the train runs: 1 warm-up round and TRAIN_ROUNDS timed, hash dither,
+# 8 bits, block 256, rho 0.05, gamma 0.5 / sqrt(1 + t), p 1.0, seed 0
+TRAIN_ROUNDS, TRAIN_SEQ, TRAIN_RHO, TRAIN_GAMMA = 3, 2048, 0.05, 0.5
+TRAIN_RUNS = {
+    # name: (arch, layers kept, clients, variates on)
+    "train_gemma3": ("gemma3-12b", 6, 2, False),
+    "train_rwkv6": ("rwkv6-3b", 8, 4, True),
+}
+# the entry point's runs (python -m repro_torch.launch.train)
+ENTRY_STEPS = 20
+ENTRY_ARCHS = ("phi3-medium-14b", "gemma3-12b", "rwkv6-3b")
+CARD_VS_CPU_ROUNDS, CARD_VS_CPU_LOSS_RTOL = 3, 1e-4
+REPLACES_BWD = {
+    # the reference differentiates jnp code: what the backward kernels
+    # take the place of on the training path is jax.grad of it
+    "flash_attention_bwd": "src/repro/models/layers.py:266",
+    "rwkv_scan_bwd": "src/repro/models/rwkv.py:53",
+}
+
+
+def _bwd_ratios(got, want):
+    """Per output: max |got - want| / max |want|."""
+    return [max_abs_err(g, w) / max(float(w.float().abs().max()), 1e-30)
+            for g, w in zip(got, want)]
+
+
+def _wkv6_backward_faulty(r, k, v, w, u, dy, fault: str):
+    """``ref.rwkv_scan_backward_plain`` with one planted fault: "skip G" (the
+    state's gradient not updated at the middle step) or "dw from S_t+1"
+    (dw_t taken against the state after step t). dr, dk, dv, dw, du."""
+    import torch
+    f32 = torch.float32
+    B, S, H, hd = r.shape
+    rf, kf, vf, wf, dyf = (t.to(f32) for t in (r, k, v, w, dy))
+    uf = u.to(f32)[None]
+    states = [torch.zeros((B, H, hd, hd), dtype=f32, device=r.device)]
+    for t in range(S):
+        states.append(wf[:, t, :, :, None] * states[-1]
+                      + kf[:, t, :, :, None] * vf[:, t, :, None, :])
+    G = torch.zeros_like(states[0])
+    grads = [torch.zeros_like(rf) for _ in range(4)]
+    du = torch.zeros((H, hd), dtype=f32, device=r.device)
+    for t in reversed(range(S)):
+        r_t, k_t, v_t, dy_t = rf[:, t], kf[:, t], vf[:, t], dyf[:, t]
+        vdy = (v_t * dy_t).sum(-1, keepdim=True)
+        s_t = states[t + 1] if fault == "dw from S_t+1" else states[t]
+        grads[1][:, t] = torch.einsum("bhij,bhj->bhi", G, v_t) \
+            + r_t * uf * vdy
+        grads[2][:, t] = torch.einsum("bhij,bhi->bhj", G, k_t) \
+            + (r_t * uf * k_t).sum(-1, keepdim=True) * dy_t
+        grads[3][:, t] = (G * s_t).sum(-1)
+        grads[0][:, t] = torch.einsum("bhij,bhj->bhi", states[t], dy_t) \
+            + uf * k_t * vdy
+        du += (r_t * k_t * vdy).sum(0)
+        if not (fault == "skip G" and t == S // 2):
+            G = wf[:, t, :, :, None] * G + r_t[..., None] * dy_t[..., None, :]
+    return (*(g.to(r.dtype) for g in grads), du)
+
+
+def backward_kernel_checks():
+    """The two backward kernels against their plain versions at the train
+    path's shapes, float32 and bf16: flash at gemma3's (B 1, S 2048, H 16,
+    KV 8, hd 256; causal, and the window of 1024) and phi3's (H 40, KV 10,
+    hd 128, causal); WKV6 at rwkv6's (B 1, S 2048, H 40, hd 64). In bf16
+    the planted faults (flash: one 64-key tile's share of dK dropped, the
+    window's edge moved by one; WKV6: one step of G skipped, dw taken from
+    S_{t+1}) must fail the limit. Times, bounds and SDPA's backward beside.
+    Returns (phase record, kernel rows)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rwkv_scan as rs
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    bf16 = torch.bfloat16
+    gemma, phi3, rwkv = (configs.get(a) for a in ("gemma3-12b",
+                                                  "phi3-medium-14b",
+                                                  "rwkv6-3b"))
+    S = TRAIN_SEQ
+    checks, timings = [], {}
+
+    def judged(case, dtype, got, want, names):
+        tol = BWD_TOL[str(dtype).split(".")[1]]
+        ratios = _bwd_ratios(got, want)
+        require(max(ratios) <= tol, f"{case} ({dtype}): backward kernel "
+                f"differs from its plain version: {dict(zip(names, ratios))}"
+                f" x max|want|, limit {tol}")
+        return {"case": case, "dtype": str(dtype), "tol": tol,
+                "max_abs_err": max(max_abs_err(g, w)
+                                   for g, w in zip(got, want)),
+                "err_over_max": dict(zip(names, ratios))}
+
+    def caught(fault, dtype, got, want, names):
+        tol = BWD_TOL[str(dtype).split(".")[1]]
+        ratios = _bwd_ratios(got, want)
+        require(max(ratios) > tol, f"the limit passes a planted backward "
+                f"fault ({fault}): {ratios}")
+        return {"fault": fault, "err_over_max": dict(zip(names, ratios)),
+                "times_the_limit": max(ratios) / tol}
+
+    names = ("dq", "dk", "dv")
+    for case, cfg, window in (("gemma3 global", gemma, 0),
+                              ("gemma3 local", gemma, gemma.window),
+                              ("phi3", phi3, 0)):
+        H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+        for dtype in (torch.float32, bf16):
+            q = _randn((1, S, H, hd), gen, dtype)
+            k = _randn((1, S, KV, hd), gen, dtype)
+            v = _randn((1, S, KV, hd), gen, dtype)
+            do = _randn((1, S, H, hd), gen, dtype)
+            o = fa.flash_attention(q, k, v, causal=True, window=window)
+            got = fa.flash_attention_backward(q, k, v, o, do, True, window)
+            want = ref.flash_attention_backward_plain(q, k, v, o, do, True,
+                                                      window)
+            rec = judged(case, dtype, got, want, names)
+            rec["shape"] = [1, S, S, H, KV, hd]
+            rec["window"] = window
+            checks.append(rec)
+            if dtype == torch.float32:
+                del got, want
+                continue
+            if case.startswith("gemma3"):
+                dk = want[1].clone()
+                dk[:, S // 2:S // 2 + 64] = 0.0
+                faults = [caught("one 64-key tile's share of dK dropped",
+                                 dtype, (want[0], dk, want[2]), want,
+                                 names)]
+                if window:
+                    faults.append(caught(
+                        "the window's edge moved by one", dtype,
+                        ref.flash_attention_backward_plain(
+                            q, k, v, o, do, True, window + 1), want, names))
+                rec["planted_faults"] = faults
+            del got, want
+            # the time of the path's bf16 backward, its bound and SDPA's
+            keep = ref.attention_keep(S, S, True, window, "cuda")
+            pairs = int(keep.sum())
+            # the function's five products (S, dP, dV, dQ, dK): 10 hd flop
+            # per kept pair and head; the bytes: q, k, v, o, do read, dq,
+            # dk, dv written once
+            nbytes = 2 * (4 * q.numel() + 4 * k.numel())
+            t = {"ms": time_ms(lambda: fa.flash_attention_backward(
+                q, k, v, o, do, True, window), 5)}
+            t["bound_ms"], t["bound_by"] = bound(
+                nbytes, 10 * hd * pairs * H, BF16_OPS_PER_S)
+            t["plain_ms"] = time_ms(lambda: ref.flash_attention_backward_plain(
+                q, k, v, o, do, True, window), 2, 1)
+            qh, kh, vh = (x.transpose(1, 2).contiguous().requires_grad_()
+                          for x in (q, k.repeat_interleave(H // KV, dim=2),
+                                    v.repeat_interleave(H // KV, dim=2)))
+            mask = None if not window else keep
+            lib = F.scaled_dot_product_attention(
+                qh, kh, vh, attn_mask=mask, is_causal=mask is None)
+            doh = do.transpose(1, 2).contiguous()
+            t["library_ms"] = time_ms(lambda: torch.autograd.grad(
+                lib, (qh, kh, vh), doh, retain_graph=True), 5)
+            t["library"] = ("scaled_dot_product_attention backward, K/V "
+                            "expanded, " + ("is_causal" if mask is None
+                                            else "boolean mask"))
+            timings[case] = t
+            del q, k, v, o, do, qh, kh, vh, lib, doh, keep
+            _free()
+
+    # WKV6 at rwkv6's shape: decays as the model makes them
+    hd = rwkv.rwkv_head_dim
+    H = rwkv.d_model // hd
+    names_w = ("dr", "dk", "dv", "dw", "du")
+    for dtype in (torch.float32, bf16):
+        r, kk, vv, dy = (_randn((1, S, H, hd), gen, dtype) for _ in range(4))
+        w = torch.exp(-torch.exp(_randn((1, S, H, hd), gen, torch.float32)
+                                 - 2.0)).to(dtype)
+        u = _randn((H, hd), gen, torch.float32) * 0.1
+        got = rs.rwkv_scan_backward(r, kk, vv, w, u, dy)
+        want = ref.rwkv_scan_backward_plain(r, kk, vv, w, u, dy)
+        rec = judged("rwkv6", dtype, got, want, names_w)
+        rec["shape"] = [1, S, H, hd]
+        checks.append(rec)
+        if dtype == bf16:
+            rec["planted_faults"] = [
+                caught(fault, dtype, _wkv6_backward_faulty(
+                    r, kk, vv, w, u, dy, fault), want, names_w)
+                for fault in ("skip G", "dw from S_t+1")]
+            n = r.numel()
+            t = {"ms": time_ms(lambda: rs.rwkv_scan_backward(
+                r, kk, vv, w, u, dy), 5)}
+            # per state element and step: the state rebuilt (2 flop), dk,
+            # dv, dw, dr (2 each) and G (2): 12 flop, float32; the bytes:
+            # r, k, v, w, dy read, four gradients written (bf16), u, du
+            t["bound_ms"], t["bound_by"] = bound(
+                2 * 9 * n + 8 * u.numel(), 12 * n * hd, F32_OPS_PER_S)
+            t["plain_ms"] = time_ms(lambda: ref.rwkv_scan_backward_plain(
+                r, kk, vv, w, u, dy), 1, 0)
+            t["library_ms"] = None
+            timings["rwkv6"] = t
+        del r, kk, vv, dy, w, u, got, want
+        _free()
+
+    flash = {"name": "flash_attention_bwd", "route": "cuda",
+             "source": LM_SOURCES["flash_attention_bwd"],
+             "replaces": REPLACES_BWD["flash_attention_bwd"],
+             "max_abs_err": max(c["max_abs_err"] for c in checks
+                                if c["case"] == "gemma3 global"
+                                and c["dtype"] == str(bf16)),
+             **{k: timings["gemma3 global"][k] for k in (
+                 "ms", "bound_ms", "bound_by", "plain_ms", "library_ms")},
+             "at": "gemma3 global, bf16, B 1, S 2048, H 16, KV 8, hd 256",
+             "other_shapes": {k: v for k, v in timings.items()
+                              if k in ("gemma3 local", "phi3")}}
+    scan = {"name": "rwkv_scan_bwd", "route": "cuda",
+            "source": LM_SOURCES["rwkv_scan_bwd"],
+            "replaces": REPLACES_BWD["rwkv_scan_bwd"],
+            "max_abs_err": max(c["max_abs_err"] for c in checks
+                               if c["case"] == "rwkv6"
+                               and c["dtype"] == str(bf16)),
+            **{k: timings["rwkv6"][k] for k in (
+                "ms", "bound_ms", "bound_by", "plain_ms", "library_ms")},
+            "at": "bf16, B 1, S 2048, H 40, hd 64"}
+    return ({"phase": "backward_kernels_vs_plain", "checks": checks,
+             "times_ms": timings},
+            {"flash_attention_bwd": flash, "rwkv_scan_bwd": scan})
+
+
+def _launch_counters():
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import quantize_block as qb
+    from repro_torch.kernels import rwkv_scan as rs
+    return {"flash_attention": fa.LAUNCHES, "rwkv_scan": rs.LAUNCHES,
+            "quantize": qb.LAUNCHES}
+
+
+def _zero_counts() -> None:
+    for counter in _launch_counters().values():
+        for key in counter:
+            counter[key] = 0
+
+
+def _read_counts() -> dict:
+    return {k: v for counter in _launch_counters().values()
+            for k, v in counter.items() if v}
+
+
+def train_run(name: str, profile: bool) -> dict:
+    """FedMM training of one arch at full width through
+    ``fed.trainer.make_train_step``: 1 warm-up round, then TRAIN_ROUNDS
+    timed (the counters zeroed just before them), each client a batch of
+    1 x TRAIN_SEQ tokens (+1 for the labels). Gates: finite losses, peak
+    under 80 GB, per client and round two forward and one backward launch
+    of the layer's kernel per layer (the step and its rematerialisation),
+    one encode per kernel-route leaf, uplink bytes equal to
+    ``payload_bytes``."""
+    import dataclasses
+    import torch
+    from repro_torch import configs
+    from repro_torch.core import compression as C
+    from repro_torch.fed import trainer as FT
+    from repro_torch.kernels import quantize_block as qb
+    from repro_torch.launch.train import sample_batch
+    from repro_torch.models import transformer as T
+    from repro_torch.models.model import build_model
+    from repro_torch.tree import tree_leaves, tree_map
+
+    arch, layers, n, variates = TRAIN_RUNS[name]
+    cfg = dataclasses.replace(configs.get(arch), n_layers=layers)
+    model = build_model(cfg, device="cuda")
+    fcfg = FT.FedLMConfig(n_clients=n, rho=TRAIN_RHO, p=1.0, alpha=0.1,
+                          quant_bits=BITS, quant_block=BLOCK,
+                          quant_dither="hash", client_mode="logical",
+                          use_cv=variates)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = FT.init_state(
+        model, torch.Generator(device="cuda").manual_seed(SEED), fcfg)
+    torch.cuda.synchronize()
+    leaves = tree_leaves(state.s_hat)
+    out = {"phase": name, "arch": arch, "layers": layers,
+           "pattern": T.layer_pattern(cfg), "clients": n,
+           "variates": fcfg.federation_spec().variates,
+           "tokens_per_client": TRAIN_SEQ, "init_seconds":
+           time.perf_counter() - t0,
+           "parameters": sum(x.numel() for x in leaves),
+           "parameter_bytes": sum(x.numel() * x.element_size()
+                                  for x in leaves)}
+    comp = fcfg.federation_spec().compressor
+    payload = comp.payload_bytes(state.s_hat)
+    # every leaf of at least KERNEL_DISPATCH_MIN elements is encoded by
+    # the kernel, whatever its shard-safe group (the largest power of two
+    # dividing D / 32, at most BLOCK: 8 to 128 here); a group of 1 would
+    # travel raw, as in the reference
+    large = [x for x in leaves if x.numel() >= C.KERNEL_DISPATCH_MIN]
+    groups = [C.group_size(x.shape[-1], BLOCK) for x in large]
+    require(all(qb.kernel_group_ok(g) for g in groups),
+            f"{name}: a large leaf's group {groups} is not the kernel's")
+    kernel_leaves = sum(1 for g in groups if g >= 2)
+    small_leaves = sum(1 for g in groups if 2 <= g < 128)
+    step = FT.make_train_step(model, fcfg)
+    data_gen = torch.Generator().manual_seed(SEED)
+    round_gen = torch.Generator().manual_seed(SEED + 1)
+    batches = [sample_batch(data_gen, cfg, n, 1, TRAIN_SEQ, model.device)
+               for _ in range(TRAIN_ROUNDS + 1)]
+
+    def one_round(t):
+        gamma = TRAIN_GAMMA / (1.0 + t) ** 0.5
+        return step(state, batches[t], round_gen, gamma)
+
+    state, m = one_round(0)                      # warm-up
+    torch.cuda.synchronize()
+    if profile:
+        # one warm round, its new state dropped
+        emit({"phase": f"profile_{name}", **profiled(lambda: one_round(1))})
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    losses, seconds, billed = [], [], []
+    for t in range(1, TRAIN_ROUNDS + 1):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state, m = one_round(t)
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t1)
+        billed.append((m["comm_bytes"], m["n_active"]))
+    counts = _read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    # one client's payload, measured off its encoded buffers; the driver
+    # bills bytes x active clients in float32, as the reference does
+    probe = comp.encode(torch.Generator().manual_seed(1),
+                        tree_map(torch.zeros_like, state.s_hat))
+    per_client = C._tree_bytes(probe)
+    del probe
+    comm_ok = per_client == payload and all(
+        torch.equal(c.cpu(), torch.tensor(float(per_client)) * a.cpu())
+        for c, a in billed)
+    comm = [float(c) for c, _ in billed]
+    per = {k: v / (n * TRAIN_ROUNDS) for k, v in counts.items()}
+    fwd, bwd = (("flash_attention", "flash_attention_bwd")
+                if cfg.family == "dense" else ("rwkv_scan", "rwkv_scan_bwd"))
+    out.update(loss=losses, seconds_per_round=seconds,
+               mean_seconds_per_round=sum(seconds) / len(seconds),
+               tokens_per_s=n * TRAIN_SEQ * len(seconds) / sum(seconds),
+               peak_bytes=peak, uplink_bytes_per_client=per_client,
+               comm_bytes_billed=comm, payload_bytes=payload,
+               kernel_route_leaves=kernel_leaves,
+               kernel_route_groups=sorted(set(groups)),
+               launches=counts, launches_per_client_round=per)
+    require(all(v == v and abs(v) < float("inf") for v in losses),
+            f"{name}: a loss is not finite: {losses}")
+    require(peak < 80e9, f"{name}: peak {peak} bytes")
+    require(per.get(fwd, 0) == 2 * layers and per.get(bwd, 0) == layers,
+            f"{name}: {fwd} / {bwd} launches per client and round {per}, "
+            f"want {2 * layers} / {layers}")
+    require(per.get("encode_seeded_small", 0) == small_leaves
+            and per.get("encode_seeded", 0) == kernel_leaves - small_leaves
+            and per.get("encode", 0) == per.get("encode_small", 0) == 0,
+            f"{name}: encode launches per client and round {per}, want "
+            f"{kernel_leaves} with the in-kernel dither, {small_leaves} of "
+            f"them with groups below 128")
+    require(comm_ok, f"{name}: uplink bytes: one client's payload "
+            f"{per_client} B, payload_bytes {payload}, billed {comm}")
+    del state, batches
+    _free()
+    return out
+
+
+def heldout_losses(arch: str, preset: str, state) -> list:
+    """The loss of T(Shat) on one held-out batch (four times the entry
+    point's default batch of 8 rows of 128 tokens, its streams seeded
+    apart from the training batches) at the entry point's initial state
+    (made again from its seed 0) and at ``state``, without a gradient."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.fed import trainer as FT
+    from repro_torch.launch.train import preset_config, sample_batch
+    from repro_torch.models.model import build_model
+    cfg = preset_config(configs.get(arch), preset)
+    model = build_model(cfg, device="cuda")
+    fcfg = FT.FedLMConfig(n_clients=4, rho=TRAIN_RHO,  # the CLI's
+                          client_mode="logical")
+    first = FT.init_state(model, torch.Generator(device="cuda").manual_seed(
+        0), fcfg)
+    batch = sample_batch(torch.Generator().manual_seed(2), cfg, 4, 8, 128,
+                         model.device)
+    flat = {k: v.reshape((-1,) + tuple(v.shape[2:])) for k, v in batch.items()}
+    with torch.no_grad():
+        return [float(model.loss_fn(FT.T_map(s.s_hat, fcfg), flat))
+                for s in (first, state)]
+
+
+def entry_point_runs() -> dict:
+    """``python -m repro_torch.launch.train --arch A --preset P --steps
+    ENTRY_STEPS`` (through ``main``) on the card for the three archs at
+    the ``100m`` (float32, hd 64) and ``smoke`` presets. Gates: every loss
+    finite, and the held-out batch's loss at the returned state below its
+    loss at the initial one. Each step's loss is on a fresh batch, whose
+    noise exceeds 20 steps' progress at the smoke preset, in the
+    reference's trainer as in the port's on the same tokens
+    (``tests/torch_train_witness.py``): the first and last are reported,
+    and whether the last is below."""
+    from repro_torch.launch import train as launch_train
+    runs = []
+    for preset in ("100m", "smoke"):
+        for arch in ENTRY_ARCHS:
+            t0 = time.perf_counter()
+            out = launch_train.main(["--arch", arch, "--preset", preset,
+                                     "--steps", str(ENTRY_STEPS),
+                                     "--log-every", str(ENTRY_STEPS)])
+            seconds = time.perf_counter() - t0
+            losses = [m["loss"] for m in out["history"]]
+            before, after = heldout_losses(arch, preset, out["state"])
+            require(all(v == v and abs(v) < float("inf")
+                        for v in losses + [before, after]),
+                    f"launch.train {arch} {preset}: loss not finite")
+            require(after < before, f"launch.train {arch} {preset}: the "
+                    f"held-out loss did not fall: {before} -> {after}")
+            runs.append({"arch": arch, "preset": preset,
+                         "first_loss": losses[0], "last_loss": losses[-1],
+                         "last_below_first": losses[-1] < losses[0],
+                         "heldout_loss": [before, after],
+                         "seconds": seconds})
+            del out
+            _free()
+    return {"phase": "train_entry_point", "steps": ENTRY_STEPS, "runs": runs}
+
+
+def train_card_vs_cpu() -> dict:
+    """CARD_VS_CPU_ROUNDS rounds of each arch's smoke preset with the
+    identity compressor on the card and on the CPU, from the same weights
+    (drawn on the CPU) and batches: the losses within CARD_VS_CPU_LOSS_RTOL,
+    every leaf of the final iterate within rtol 1e-5 / atol 1e-6 (the CPU
+    parity tests' tolerance, ``tests/_torch_parity.py``)."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.fed import trainer as FT
+    from repro_torch.launch.train import sample_batch
+    from repro_torch.models.model import build_model
+    from repro_torch.tree import tree_leaves, tree_map
+
+    records = []
+    for arch in ENTRY_ARCHS:
+        cfg = configs.get(arch).reduced()
+        fcfg = FT.FedLMConfig(n_clients=4, rho=TRAIN_RHO, quant_bits=0,
+                              client_mode="logical")
+        cpu_model = build_model(cfg, device="cpu")
+        state0 = FT.init_state(cpu_model, torch.Generator().manual_seed(SEED),
+                               fcfg)
+        batches = [sample_batch(torch.Generator().manual_seed(SEED + t), cfg,
+                                4, 2, 64, "cpu")
+                   for t in range(CARD_VS_CPU_ROUNDS)]
+        runs = {}
+        for device in ("cuda", "cpu"):
+            model = build_model(cfg, device=device)
+            step = FT.make_train_step(model, fcfg)
+            state = FT.FedLMState(*(tree_map(lambda x: x.to(device), f)
+                                    for f in state0))
+            losses = []
+            for t, batch in enumerate(batches):
+                state, m = step(state, batch, torch.Generator().manual_seed(
+                    SEED + t), TRAIN_GAMMA / (1.0 + t) ** 0.5)
+                losses.append(float(m["loss"]))
+            runs[device] = (losses, state)
+        (lc, sc), (lp, sp) = runs["cuda"], runs["cpu"]
+        loss_gap = max(abs(a - b) / abs(b) for a, b in zip(lc, lp))
+        worst = max(float(((a.cpu() - b).abs() / (1e-6 + 1e-5 * b.abs()))
+                          .max())
+                    for a, b in zip(tree_leaves(sc.s_hat),
+                                    tree_leaves(sp.s_hat)))
+        require(loss_gap <= CARD_VS_CPU_LOSS_RTOL,
+                f"{arch}: card and CPU losses part by {loss_gap}")
+        require(worst <= 1.0, f"{arch}: the card's iterate differs from the "
+                f"CPU's by {worst} x the tolerance")
+        records.append({"arch": arch, "losses_card": lc, "losses_cpu": lp,
+                        "max_loss_rel_gap": loss_gap,
+                        "iterate_worst_ratio": worst})
+    return {"phase": "train_card_vs_cpu", "rounds": CARD_VS_CPU_ROUNDS,
+            "records": records}
+
+
+def train_phase(card: str, profile: bool) -> tuple:
+    """The train phase: the backward kernels against their plain versions,
+    the two full-width train runs, the entry point and the card against
+    the CPU. Emits each part's record; returns the backward kernels' rows
+    and each kernel's launches over the two train runs."""
+    rec, rows = backward_kernel_checks()
+    emit(dict(rec, card=card))
+    _free()
+    launches = {}
+    for name in TRAIN_RUNS:
+        out = train_run(name, profile)
+        emit(dict(out, card=card))
+        for k, v in out["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    emit(dict(entry_point_runs(), card=card))
+    emit(dict(train_card_vs_cpu(), card=card))
+    return rows, launches
+
+
 def profiled(fn, top: int = 12):
     """Run ``fn`` once under torch.profiler; its wall time, the device's
     busy and idle share, and the top operators and kernels by device
@@ -2203,18 +2788,39 @@ def main() -> int:
     name = torch.cuda.get_device_name(0)
     t0 = time.perf_counter()
     # one nvcc per source, started together
-    libs = build.build_many([(m.SOURCE, m.NVCC_FLAGS) for m in (qb, fa, rs)],
+    sources = [qb.SOURCE, fa.SOURCE, rs.SOURCE, fa.SOURCE_BWD, rs.SOURCE_BWD]
+    libs = build.build_many([(src, build.BASE_FLAGS) for src in sources],
                             force=True)
-    for m in (qb, fa, rs):
-        m._lib()
+    for load in (qb._lib, fa._lib, rs._lib, fa._bwd_lib, rs._bwd_lib):
+        load()
     ptxas = {}
-    for m in (qb, fa, rs):
-        report = build.BUILD_INFO.get(m.SOURCE.name, "")
-        ptxas[m.SOURCE.name] = {
+    for src in sources:
+        report = build.BUILD_INFO.get(src.name, "")
+        ptxas[src.name] = {
             "max_registers": max(map(int, re.findall(
                 r"Used (\d+) registers", report)), default=None),
             "spill_bytes": sum(map(int, re.findall(
                 r"(\d+) bytes spill stores", report)))}
+    # the backward kernels' instances at the paths' head dims: gemma3's
+    # 256 (flash), rwkv6's 64 (WKV6), bf16
+    fa_bwd = build.BUILD_INFO.get(fa.SOURCE_BWD.name, "")
+    dq_smem, dkv_smem = ctypes.c_int(0), ctypes.c_int(0)
+    build.check(fa._bwd_lib().fa_backward_smem_bytes(
+        256, ctypes.byref(dq_smem), ctypes.byref(dkv_smem)), "smem query")
+    ptxas["backward_instances"] = {
+        "fa_bwd_dq_hd256_bf16": ptxas_report(
+            fa_bwd, "fa_bwd_dq_kernelI13__nv_bfloat16Li256E", dq_smem.value),
+        "fa_bwd_dkdv_hd256_bf16": ptxas_report(
+            fa_bwd, "fa_bwd_dkdv_kernelI13__nv_bfloat16Li256E",
+            dkv_smem.value),
+        "fa_bwd_dq_hd256_f32": ptxas_report(
+            fa_bwd, "fa_bwd_dq_kernelIfLi256E", dq_smem.value),
+        "fa_bwd_dkdv_hd256_f32": ptxas_report(
+            fa_bwd, "fa_bwd_dkdv_kernelIfLi256E", dkv_smem.value),
+        "wkv6_bwd_hd64_bf16": ptxas_report(
+            build.BUILD_INFO.get(rs.SOURCE_BWD.name, ""),
+            "wkv6_bwd_kernelI13__nv_bfloat16Li64E",
+            rs._bwd_lib().wkv6_backward_smem_bytes(64))}
     emit({"phase": "setup", "card": card, "torch": torch.__version__,
           "cuda": torch.version.cuda, "tf32": False,
           "build_seconds": time.perf_counter() - t0,
@@ -2306,7 +2912,22 @@ def main() -> int:
         by_arch[aid] = n
         total = sum(by_arch.values())
         row.update(launches=total, launches_by_path={"serve": total})
+    _free()
+    bwd_rows, train_launches = train_phase(card, profile)
+    # the train path's launches: the two full-width runs' timed rounds
+    for key, row in list(lm_kernels.items()) + list(kernels.items()):
+        n = sum(train_launches.get(c, 0) for c in ROW_COUNTS.get(key, (key,)))
+        if n:
+            by_path = row.setdefault("launches_by_path", {})
+            by_path["train"] = n
+            row["launches"] = sum(by_path.values())
+    for key, row in bwd_rows.items():
+        row.update(launches=train_launches.get(key, 0),
+                   launches_by_path={"train": train_launches.get(key, 0)})
+        require(row["launches"] > 0, f"{key} was not launched on the train "
+                f"path")
     kernels.update(lm_kernels)
+    kernels.update(bwd_rows)
     emit({"kernels": list(kernels.values())})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(card, flush=True)

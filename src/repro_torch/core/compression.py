@@ -19,13 +19,14 @@ Leaves are taken in ``repro_torch.tree`` order, which is JAX's (dicts in
 sorted-key order), so the i-th seed belongs to the same leaf in both.
 
 Dispatch. ``quantize_leaf``/``encode_leaf`` send large leaves (at least
-``KERNEL_DISPATCH_MIN`` elements with a group that the CUDA kernel takes)
-to ``kernels/ops.py``, everything else to the plain oracle of
-``kernels/ref.py``; both give the same bits for the same draws. On a CUDA
-tensor the kernel route launches the Hopper kernels; on the CPU it runs
-their plain versions. A ``DTensor`` leaf whose local tensor is the whole
-leaf (fully replicated, or on a one-rank mesh) takes these routes on its
-local tensor; a partitioned one whose groups each lie in one rank's block
+``KERNEL_DISPATCH_MIN`` elements with a group that the CUDA kernel takes:
+a multiple of 128, as in the reference, or a power of two below 128,
+which the reference leaves to jnp) to ``kernels/ops.py``, everything else
+to the plain oracle of ``kernels/ref.py``; both give the same bits for the
+same draws. On a CUDA tensor the kernel route launches the Hopper
+kernels; on the CPU it runs their plain versions. A ``DTensor`` leaf
+whose local tensor is the whole leaf (fully replicated, or on a one-rank
+mesh) takes these routes on its local tensor; a partitioned one whose groups each lie in one rank's block
 takes the reference's ``"shard_map"`` route, one kernel launch per rank
 (``kernels/ops.py:quantize_dequantize_sharded``, ``quantize_encode_
 sharded``) with the dither drawn by global element index, so the result is
@@ -36,7 +37,10 @@ Dither sources: ``"hash"`` (the murmur hash of the element index and the
 leaf seed), ``"uniform"`` (``torch.rand`` from a generator seeded by the
 leaf seed; not the reference's threefry draws), and ``"kernel"`` (the
 dither made inside the kernel: the same murmur hash, so bit-identical to
-``"hash"``; leaves off the kernel route use ``"hash"``).
+``"hash"``; leaves off the kernel route use ``"hash"``). On the kernel
+route ``"hash"`` takes the in-kernel dither too: the same bits, without
+the streamed dither's int64 temporaries (several GB for one embedding
+leaf at LM width).
 
 Wire format: ``PackedLeaf`` carries int8 codes (nibble-packed uint8 for
 bits <= 4), one scale per group, and an optional 32-bit digest (held as
@@ -55,7 +59,7 @@ import torch.nn.functional as F
 
 from ..kernels import ops as kernel_ops
 from ..kernels import ref as kernel_ref
-from ..kernels.quantize_block import kernel_group_ok
+from ..kernels.quantize_block import kernel_group_ok, reduce_group_ok
 from ..tree import tree_flatten, tree_leaves, tree_map, tree_unflatten
 
 Pytree = object
@@ -439,8 +443,9 @@ def _kernel_route(x: torch.Tensor, g: int, kernel_threshold: int) -> str:
       lie in one rank's block: the kernel on each block;
     * ``"plain"``     - everything else (the oracle).
 
-    The reference's rule: at least ``kernel_threshold`` elements and a
-    128-aligned group."""
+    The reference's rule is at least ``kernel_threshold`` elements and a
+    128-aligned group; the port's kernels also take power-of-two groups
+    below 128 (``kernel_group_ok``)."""
     if x.numel() < kernel_threshold or not kernel_group_ok(g):
         return "plain"
     if not _is_dtensor(x) or _whole_on_rank(x):
@@ -581,7 +586,7 @@ def quantize_leaf(seed, x, bits: int = 8, block: int = 256,
         route = _kernel_route(x, g, kernel_threshold)
         if route == "kernel":
             x2 = _kernel_view(x, g)
-            if dither == "kernel":
+            if dither != "uniform":
                 out = kernel_ops.quantize_dequantize_kernel_dither(
                     x2, seed, bits=bits, group=g)
             else:
@@ -610,7 +615,7 @@ def quantize_leaf(seed, x, bits: int = 8, block: int = 256,
         flat = F.pad(flat, (0, pad))
     route = _kernel_route(x, block, kernel_threshold)
     if route == "kernel":
-        if dither == "kernel":
+        if dither != "uniform":
             out = kernel_ops.quantize_dequantize_kernel_dither(
                 _kernel_view(flat, block), seed, bits=bits,
                 group=block).reshape(-1)
@@ -660,7 +665,7 @@ def encode_leaf(seed, x, bits: int = 8, block: int = 256,
                 x.reshape(gshape), u.reshape(gshape), bits=bits)
         elif route == "kernel":
             x2 = _kernel_view(x, g)
-            if dither == "kernel":
+            if dither != "uniform":
                 codes, scales = kernel_ops.quantize_encode_kernel_dither(
                     x2, seed, bits=bits, group=g)
             else:
@@ -696,7 +701,7 @@ def encode_leaf(seed, x, bits: int = 8, block: int = 256,
         route = _kernel_route(x, block, kernel_threshold)
         if route == "kernel":
             x2 = _kernel_view(flat, block)
-            if dither == "kernel":
+            if dither != "uniform":
                 codes, scales = kernel_ops.quantize_encode_kernel_dither(
                     x2, seed, bits=bits, group=block)
             else:
@@ -773,7 +778,7 @@ def decode_reduce_leaf(p, w, kernel_threshold: int = KERNEL_DISPATCH_MIN,
     one_batch_axis = (p.codes.ndim - (len(shape) if p.mode == "shard"
                                       else 1)) == 1
     route_ok = (fused is not False and n >= kernel_threshold
-                and kernel_group_ok(g) and one_batch_axis
+                and reduce_group_ok(g) and one_batch_axis
                 and p.dtype == torch.float32
                 and p.scales.dtype == torch.float32)
     if route_ok:

@@ -6,6 +6,7 @@ protocol (the counterpart of ``repro/data/synthetic.py``).
 - Heterogeneous client split: a greedy balanced k-means, so that each
   client holds one cluster (maximally heterogeneous).
 - GMM data for the EM experiments.
+- Heterogeneous token streams for the LM trainer (``token_stream``).
 
 Randomness: every generator takes an explicit ``torch.Generator`` and
 draws on the generator's device; the result lands on ``device`` (the GPU
@@ -119,3 +120,36 @@ def client_minibatch_fn(client_data: torch.Tensor, batch_size: int):
         return client_data[rows, idx.to(client_data.device)]
 
     return fn
+
+
+# ---------------------------------------------------------------------------
+# Token streams (LM substrate)
+# ---------------------------------------------------------------------------
+
+def token_logits(n_clients: int, vocab: int, client_skew: float = 0.8,
+                 device=None) -> torch.Tensor:
+    """(n_clients, vocab) float32 unigram logits: a Zipf-ish base
+    1 / (v + 10) sharpened by ``client_skew`` times a Gaussian bump over
+    client c's band of the vocabulary (centre (c + 1/2) vocab / n), in the
+    reference's float32 arithmetic."""
+    f32 = torch.float32
+    v = torch.arange(vocab, dtype=f32, device=device)
+    c = torch.arange(n_clients, dtype=f32, device=device)[:, None]
+    base = 1.0 / (v + 10.0)
+    center = (c + 0.5) / n_clients * vocab
+    width = vocab / n_clients / (1.0 - client_skew + 1e-3)
+    boost = torch.exp(-0.5 * ((v - center) / width) ** 2)
+    return torch.log(base + client_skew * boost)
+
+
+def token_stream(gen: torch.Generator, n_clients: int, seq_len: int,
+                 vocab: int, client_skew: float = 0.8) -> torch.Tensor:
+    """Heterogeneous synthetic tokens (the counterpart of the reference's
+    ``token_stream``): row c draws ``seq_len`` tokens from
+    softmax(``token_logits``[c]), models federated non-IID text. Returns
+    (n_clients, seq_len) int64 on ``gen``'s device. The draws are
+    ``torch.multinomial``'s from ``gen``, not the reference's threefry
+    categorical draws: the same distribution, other tokens."""
+    logits = token_logits(n_clients, vocab, client_skew, device=gen.device)
+    return torch.multinomial(torch.softmax(logits, dim=-1), seq_len,
+                             replacement=True, generator=gen)

@@ -7,9 +7,12 @@ tensors of them on the GPU, or on the device the caller names, and
 arrays (seeds, digests) become int64 tensors, since PyTorch has little
 uint32 arithmetic. bfloat16 arrays (``ml_dtypes.bfloat16``, which
 ``torch.tensor`` cannot take) cross through their 16-bit pattern, bit for
-bit. ``model_params_to_torch`` carries a model's weights across,
-``ot_state_to_torch`` the FedMM-OT and FedAdam states, and
-``state_for_rank`` a whole driver state to one rank of a mesh.
+bit. ``model_params_to_torch`` carries a model's weights across and
+``model_params_to_numpy`` brings a per-layer tree (weights or their
+gradients) back to the reference's layout; ``fedlm_state_to_torch``
+carries the LM trainer's state, ``ot_state_to_torch`` the FedMM-OT and
+FedAdam states, and ``state_for_rank`` a whole driver state to one rank
+of a mesh.
 """
 from __future__ import annotations
 
@@ -17,8 +20,9 @@ import numpy as np
 import torch
 
 from .api.driver import DriverState, resolve_device
+from .fed.trainer import FedLMState
 from .models import transformer as T
-from .models.layers import Params
+from .models.layers import Params, params_tree
 from .optim.optimizers import AdamState
 from .tree import tree_map
 
@@ -81,15 +85,53 @@ def model_params_to_torch(cfg, np_params, device=None) -> Params:
     cycle position's layers along a leading axis (``params["stack"]``, one
     tree per position); the port keeps one tree per layer, so layer ``i``
     is block ``i // c`` of position ``i % c`` for a cycle of ``c``."""
-    dev = resolve_device(device)
+    return Params(to_torch(_unstack(cfg, np_params), resolve_device(device)))
+
+
+def _unstack(cfg, tree, lead: int = 0):
+    """The reference's layout (``tree["stack"]``: one tree per cycle
+    position, each leaf's axis ``lead`` over the cycle's blocks) -> the
+    port's (``"layers"``: one tree per layer)."""
     pattern = T.layer_pattern(cfg)
     c = T._cycle(pattern)
-    stack = np_params["stack"]
-    layers = [tree_map(lambda a, i=i: a[i // c], stack[i % c])
+    stack = tree["stack"]
+    index = (slice(None),) * lead
+    layers = [tree_map(lambda a, i=i: a[index + (i // c,)], stack[i % c])
               for i in range(len(pattern))]
-    tree = {"embedding": np_params["embedding"], "layers": layers,
-            "final_norm": np_params["final_norm"]}
-    return Params(to_torch(tree, dev))
+    return {"embedding": tree["embedding"], "layers": layers,
+            "final_norm": tree["final_norm"]}
+
+
+def model_params_to_numpy(cfg, params) -> dict:
+    """The port's per-layer tree (a ``Params`` module, or a plain tree such
+    as the trainer's iterate or the gradients of ``loss_fn``) -> the
+    reference's layout with numpy leaves: ``"stack"`` a tuple of one tree
+    per cycle position, each leaf stacked over the cycle's blocks."""
+    tree = to_numpy(params_tree(params))
+    c = T._cycle(T.layer_pattern(cfg))
+    layers = tree["layers"]
+    stack = tuple(tree_map(lambda *xs: np.stack(xs), *layers[pos::c])
+                  for pos in range(c))
+    return {"embedding": tree["embedding"], "stack": stack,
+            "final_norm": tree["final_norm"]}
+
+
+def fedlm_state_to_torch(cfg, state, device=None) -> FedLMState:
+    """The reference's ``FedLMState`` with numpy leaves -> the port's
+    ``fed.trainer.FedLMState`` on ``device`` (the GPU unless asked
+    otherwise): ``s_hat``, ``v`` and ``opt`` as per-layer trees, ``v_i``
+    per layer with its leading client axis; an empty ``v``, ``v_i`` or
+    ``opt`` (no variates, no momentum) becomes ``()``."""
+    dev = resolve_device(device)
+
+    def tree(t, lead=0):
+        if isinstance(t, (dict, tuple)) and not t:
+            return ()
+        return to_torch(_unstack(cfg, t, lead), dev)
+
+    return FedLMState(s_hat=tree(state.s_hat), v=tree(state.v),
+                      v_i=tree(state.v_i, lead=1),
+                      step=to_torch(state.step, dev), opt=tree(state.opt))
 
 
 def ot_state_to_torch(state, cls, device=None):

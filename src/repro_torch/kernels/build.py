@@ -101,6 +101,15 @@ def stream_of(t):
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
 
 
+def aligned(t):
+    """``t`` itself, or a contiguous copy where a kernel's 16-byte vector
+    loads could not read it."""
+    import torch
+    if t.is_contiguous() and t.data_ptr() % 16 == 0:
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
+
+
 def route(x, what: str) -> str:
     """'plain' for CPU (and shape-only meta) tensors, 'cuda' for CUDA
     tensors; any other device is refused."""

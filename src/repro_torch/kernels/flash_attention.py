@@ -29,11 +29,23 @@ tensors' strides:
 Both skip KV tiles the masks empty for a whole query tile. The source
 header says what bounds each and what the design does about that.
 
-``flash_attention`` takes the plain version for CPU (and shape-only
-``meta``) tensors, launches a kernel for CUDA tensors, and raises for
-anything else; a CUDA tensor never falls back (an hd outside
-``HEAD_DIMS`` raises). ``LAUNCHES`` counts the kernel's launches; only a
-launch adds to it. ``blocks_per_sm`` reports a launch's occupancy.
+The backward, ``flash_attention_backward`` (dq, dk, dv from q, k, v, the
+output and its gradient), is two SIMT kernels of its own source,
+``csrc/flash_attention_bwd.cu``, built apart so that the forward's
+library stays what it was: one over query tiles (the rows' log-sum-exp,
+which the forward does not save, then dq), one over key tiles (dk and dv
+summed over each KV head's query heads, no atomics). Its header says
+what bounds it. ``FlashAttentionFn`` ties the two kernels together as a
+``torch.autograd.Function``, which ``kernels/ops.py`` applies to CUDA
+tensors.
+
+``flash_attention`` and ``flash_attention_backward`` take the plain
+versions for CPU (and shape-only ``meta``) tensors, launch their kernels
+for CUDA tensors, and raise for anything else; a CUDA tensor never falls
+back (an hd outside ``HEAD_DIMS`` raises). ``LAUNCHES`` counts the
+kernels' launches (``flash_attention``; ``flash_attention_bwd``, once per
+backward, for its two kernels); only a launch adds to it.
+``blocks_per_sm`` reports a forward launch's occupancy.
 """
 from __future__ import annotations
 
@@ -45,18 +57,21 @@ from . import build as B
 from . import ref
 
 SOURCE = B.CSRC / "flash_attention.cu"
+SOURCE_BWD = B.CSRC / "flash_attention_bwd.cu"
 NVCC_FLAGS = B.BASE_FLAGS
 HEAD_DIMS = (32, 64, 128, 256)
 # fa_forward returns this plus the CUresult when a tensor map is refused
 ENCODE_ERROR = 10000
 
-LAUNCHES = {"flash_attention": 0}
+LAUNCHES = {"flash_attention": 0, "flash_attention_bwd": 0}
 
 _LIB = None
+_BWD_LIB = None
 
 
 def reset_launches() -> None:
-    LAUNCHES["flash_attention"] = 0
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
 
 
 def _lib():
@@ -70,6 +85,17 @@ def _lib():
             "fa_smem_bytes": [I],
             "fa_blocks_per_sm": [I, I, ctypes.POINTER(I)]})
     return _LIB
+
+
+def _bwd_lib():
+    global _BWD_LIB
+    if _BWD_LIB is None:
+        P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        _BWD_LIB = B.load(SOURCE_BWD, NVCC_FLAGS, {
+            "fa_backward": [P] * 10 + [I] * 7 + [LL] * 24 + [I, I, I, P],
+            "fa_backward_smem_bytes": [I, ctypes.POINTER(I),
+                                       ctypes.POINTER(I)]})
+    return _BWD_LIB
 
 
 def blocks_per_sm(dtype: torch.dtype, hd: int) -> int:
@@ -146,3 +172,68 @@ def flash_attention(q, k, v, causal: bool = True, window: int = 0):
     B.check(rc, "flash attention")
     LAUNCHES["flash_attention"] += 1
     return out
+
+
+def flash_attention_backward(q, k, v, o, do, causal: bool = True,
+                             window: int = 0):
+    """Gradients (dq, dk, dv) of ``flash_attention(q, k, v, causal,
+    window)``, given its output ``o`` and the output's gradient ``do``
+    (both (B, Sq, H, hd) in q's dtype). Returns them in the inputs'
+    dtypes."""
+    _check_shapes(q, k, v)
+    if window < 0:
+        raise ValueError(f"window={window}")
+    for name, t in (("o", o), ("do", do)):
+        if t.shape != q.shape:
+            raise ValueError(f"{name} {tuple(t.shape)} != q {tuple(q.shape)}")
+    if B.route(q, "flash attention backward") == "plain":
+        return ref.flash_attention_backward_plain(q, k, v, o, do,
+                                                  causal=causal,
+                                                  window=window)
+    _check_kernel_args(q, k, v)
+    o, do = B.aligned(o.to(q.dtype)), B.aligned(do.to(q.dtype))
+    _check_kernel_args(o, do, do)
+    Bq, Sq, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    dk = torch.empty(k.shape, dtype=k.dtype, device=q.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=q.device)
+    lse2 = torch.empty((Bq, H, Sq), dtype=torch.float32, device=q.device)
+    delta = torch.empty_like(lse2)
+    rc = _bwd_lib().fa_backward(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        lse2.data_ptr(), delta.data_ptr(),
+        int(q.dtype == torch.bfloat16), Bq, Sq, Sk, H, KV, hd,
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
+        *do.stride()[:3], *dq.stride()[:3], *dk.stride()[:3],
+        *dv.stride()[:3], int(causal), int(window), q.device.index or 0,
+        B.stream_of(q))
+    B.check(rc, "flash attention backward")
+    LAUNCHES["flash_attention_bwd"] += 1
+    return dq, dk, dv
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """``flash_attention`` with its backward kernel: the forward kernel
+    saves nothing beyond q, k, v and its output; the backward launches
+    ``flash_attention_backward``'s kernels. For CUDA tensors
+    (``kernels/ops.py``); CPU tensors take the plain version, which
+    autograd differentiates as it does any PyTorch code."""
+
+    @staticmethod
+    def forward(q, k, v, causal, window):
+        return flash_attention(q, k, v, causal=causal, window=window)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, causal, window = inputs
+        ctx.save_for_backward(q, k, v, output)
+        ctx.causal, ctx.window = causal, window
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward(q, k, v, o, do, ctx.causal,
+                                              ctx.window)
+        return dq, dk, dv, None, None

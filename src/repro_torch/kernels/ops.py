@@ -1,8 +1,11 @@
 """Public wrappers for the kernels (the counterparts of
 ``repro/kernels/ops.py``). The quantizer wrappers pad or reshape to the
-kernel's (R, D) view and call ``quantize_block``; ``flash_attention`` and
-``rwkv_wkv`` call their kernel modules. Each kernel module launches its
-CUDA kernel for CUDA tensors and takes its plain version on the CPU.
+kernel's (R, D) view and call ``quantize_block``. ``flash_attention`` and
+``rwkv_wkv`` apply their kernels' ``torch.autograd.Function``s to CUDA
+tensors (a forward kernel, and a backward kernel when autograd asks for
+the gradient) and call the plain versions on CPU tensors, which autograd
+differentiates as any PyTorch code. Each kernel module launches its CUDA
+kernel for CUDA tensors and takes its plain version on the CPU.
 
 ``quantize_dequantize_sharded`` and ``quantize_encode_sharded`` are the
 counterparts of the reference's shard_map wrappers: one kernel launch on
@@ -13,6 +16,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from . import build as B
 from . import flash_attention as fa
 from . import quantize_block as qb
 from . import rwkv_scan as rs
@@ -85,6 +89,8 @@ def flash_attention(q, k, v, causal: bool = True, window: int = 0,
     hd). ``q_block``/``kv_block`` keep the reference's signature and must
     stay at their defaults."""
     _tpu_tiles_at_default(q_block=q_block, kv_block=kv_block)
+    if q.device.type == "cuda":
+        return fa.FlashAttentionFn.apply(q, k, v, causal, window)
     return fa.flash_attention(q, k, v, causal=causal, window=window)
 
 
@@ -93,6 +99,8 @@ def rwkv_wkv(r, k, v, w, u, chunk: int = 64):
     reference's signature and must stay at its default: the Hopper kernel
     walks time in one pass."""
     _tpu_tiles_at_default(chunk=chunk)
+    if r.device.type == "cuda":
+        return rs.WKV6Fn.apply(r, k, v, w, rs.as_u32(u, r))
     return rs.rwkv_scan(r, k, v, w, u)
 
 
@@ -134,18 +142,10 @@ def like_dtensor(local, x, shape):
                               stride=_contiguous_stride(shape))
 
 
-def _aligned(t):
-    """``t`` itself, or a contiguous copy where the kernel's 16-byte vector
-    loads could not read it."""
-    if t.is_contiguous() and t.data_ptr() % 16 == 0:
-        return t
-    return t.clone(memory_format=torch.contiguous_format)
-
-
 def _local_rows(x, u, group: int):
     xl = x.to_local()
-    x2 = _aligned(rows_view(xl.to(torch.float32), group))
-    return xl, x2, _aligned(u.reshape(x2.shape))
+    x2 = B.aligned(rows_view(xl.to(torch.float32), group))
+    return xl, x2, B.aligned(u.reshape(x2.shape))
 
 
 def quantize_dequantize_sharded(x, u, bits: int = 8, group: int = 256):

@@ -5,7 +5,8 @@ Counterparts of the Pallas kernels in ``repro/kernels/quantize_block.py``:
 
 * ``quantize_grouped``       <- ``quantize_grouped_pallas``: fused
   quantize -> dequantize of an ``(R, D)`` view with groups of ``g`` along
-  the last axis;
+  the last axis (``g`` a multiple of 128, as the reference's kernel, or a
+  power of two below 128, which the reference leaves to jnp);
 * ``quantize_encode_grouped`` <- ``quantize_encode_grouped_pallas``: the
   wire encode, int8 codes ``(R, D)`` and one f32 scale per group
   ``(R, D / g)``;
@@ -42,9 +43,12 @@ NVCC_FLAGS = B.BASE_FLAGS + ("-fmad=false",)
 # launches per kernel variant: streamed dither, dither made in the kernel;
 # ``quantize_block`` counts the streamed ``quantize`` kernel's launches for
 # the flat stream (``ops.quantize_dequantize_with_dither``), apart from the
-# grouped route's
-LAUNCHES = {"quantize": 0, "quantize_seeded": 0, "encode": 0,
-            "encode_seeded": 0, "decode_reduce": 0, "quantize_block": 0}
+# grouped route's; a ``_small`` entry counts a variant's launches with a
+# group below 128 (``small_quant_kernel`` in the source)
+_VARIANTS = ("quantize", "quantize_seeded", "encode", "encode_seeded",
+             "quantize_block")
+LAUNCHES = {**{k: 0 for k in _VARIANTS}, "decode_reduce": 0,
+            **{k + "_small": 0 for k in _VARIANTS}}
 
 _LIB = None
 
@@ -55,9 +59,17 @@ def reset_launches() -> None:
 
 
 def kernel_group_ok(group: int) -> bool:
-    """The kernels take any group that is a whole number of 128-element
-    chunks (one float4 per lane per chunk), the reference's alignment
-    rule."""
+    """The quantize and encode kernels take a group that is a whole number
+    of 128-element chunks (one float4 per lane per chunk, the reference's
+    alignment rule) or a power of two below 128 (the shard-safe groups of
+    LM-width leaves: several groups per warp)."""
+    return reduce_group_ok(group) or (1 <= group < 128
+                                      and group & (group - 1) == 0)
+
+
+def reduce_group_ok(group: int) -> bool:
+    """The decode + reduce kernel takes groups that are a multiple of 128
+    (16 consecutive elements of a thread share one scale)."""
     return group >= 128 and group % 128 == 0
 
 
@@ -103,7 +115,7 @@ def _check_grouped(x2: torch.Tensor, group: int, bits: int) -> None:
 def _check_kernel_args(x2, u2, group) -> None:
     if not kernel_group_ok(group):
         raise ValueError(f"the CUDA kernel takes groups that are a multiple "
-                         f"of 128, got {group}")
+                         f"of 128 or a power of two below it, got {group}")
     _require(x2, "x2", torch.float32, x2.device)
     if u2 is not None:
         if u2.shape != x2.shape:
@@ -114,6 +126,10 @@ def _check_kernel_args(x2, u2, group) -> None:
 
 def _seed_u32(seed) -> int:
     return int(seed) & 0xFFFFFFFF
+
+
+def _count(variant: str, group: int) -> None:
+    LAUNCHES[variant if group >= 128 else variant + "_small"] += 1
 
 
 # ---------------------------------------------------------------------------
@@ -185,8 +201,8 @@ def quantize_grouped(x2, u2=None, *, bits: int = 8, group: int = 256,
         _seed_u32(0 if seed is None else seed), int(u2 is None),
         x2.device.index or 0, B.stream_of(x2))
     B.check(rc, "quantize")
-    LAUNCHES[count_as or ("quantize" if u2 is not None
-                          else "quantize_seeded")] += 1
+    _count(count_as or ("quantize" if u2 is not None
+                        else "quantize_seeded"), group)
     return out
 
 
@@ -211,7 +227,7 @@ def quantize_encode_grouped(x2, u2=None, *, bits: int = 8, group: int = 256,
         _seed_u32(0 if seed is None else seed), int(u2 is None),
         x2.device.index or 0, B.stream_of(x2))
     B.check(rc, "encode")
-    LAUNCHES["encode" if u2 is not None else "encode_seeded"] += 1
+    _count("encode" if u2 is not None else "encode_seeded", group)
     return codes, scales
 
 
@@ -233,7 +249,7 @@ def decode_reduce_grouped(codes, scales, w, *, bits: int = 8,
         return decode_reduce_grouped_plain(codes, scales,
                                            w.to(torch.float32), bits=bits,
                                            group=group)
-    if not kernel_group_ok(group):
+    if not reduce_group_ok(group):
         raise ValueError(f"the CUDA kernel takes groups that are a multiple "
                          f"of 128, got {group}")
     _require(codes, "codes", torch.int8, codes.device)

@@ -1,5 +1,7 @@
 """Plain PyTorch oracles (the counterparts of ``repro/kernels/ref.py``):
-the block quantizer, flash attention and the RWKV6 WKV recurrence.
+the block quantizer, flash attention and the RWKV6 WKV recurrence, and
+the backward passes of the last two (which the reference has no kernel
+for: it differentiates jnp code).
 
 Each quantizer oracle repeats the reference's arithmetic operation for
 operation, so that on the same inputs (``x`` and the uniform draws ``u``)
@@ -15,7 +17,11 @@ mode, and to the CUDA kernels in ``csrc/quantize_block.cu``:
   product overflows.
 
 The attention and WKV6 oracles are held to tolerances: their sums run in
-another order than the kernels'.
+another order than the kernels'. The backward versions
+(``flash_attention_backward_plain``, ``rwkv_scan_backward_plain``) follow
+the algorithms of their CUDA kernels (``csrc/flash_attention_bwd.cu``,
+``csrc/rwkv_scan_bwd.cu``) in float32; the tests hold them against
+``torch.autograd`` through the forward oracles.
 """
 from __future__ import annotations
 
@@ -183,6 +189,63 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(B, Sq, H, hd)
 
 
+def attention_keep(Sq: int, Sk: int, causal: bool, window: int, device):
+    """(Sq, Sk) bool: the (query, key) pairs the masks keep, query i and key
+    j at positions i and j."""
+    q_pos = torch.arange(Sq, device=device)[:, None]
+    k_pos = torch.arange(Sk, device=device)[None, :]
+    keep = torch.ones((Sq, Sk), dtype=torch.bool, device=device)
+    if causal:
+        keep &= k_pos <= q_pos
+    if window:
+        keep &= k_pos > q_pos - window
+    return keep
+
+
+def flash_attention_backward_plain(q, k, v, o, do, causal: bool = True,
+                                   window: int = 0, keep=None):
+    """Gradients (dq, dk, dv) of ``flash_attention_ref`` given its output
+    ``o`` and the output's gradient ``do``, by the kernel's algorithm in
+    float32: first each query row's max and sum over the keys its mask
+    keeps (the log-sum-exp, which the forward does not save) and
+    D_i = sum do_i o_i, then P = exp(S - lse), dV = P^T dO,
+    dS = P (dO V^T - D), dQ = dS K / sqrt(hd), dK = dS^T Q / sqrt(hd),
+    dK and dV summed over the query heads of each KV head. A row with no
+    key kept gets no gradient. ``keep``: an (Sq, Sk) bool mask used in
+    place of the one ``causal`` and ``window`` make. Returns the three in
+    their inputs' dtypes."""
+    f32 = torch.float32
+    B, Sq, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    scale = hd ** -0.5
+    qg = q.to(f32).reshape(B, Sq, KV, G, hd)
+    dog = do.to(f32).reshape(B, Sq, KV, G, hd)
+    kf, vf = k.to(f32), v.to(f32)
+    if keep is None:
+        keep = attention_keep(Sq, Sk, causal, window, q.device)
+    s = torch.einsum("bqkgh,bskh->bkgqs", qg, kf).mul_(scale)
+    s.masked_fill_(~keep, float("-inf"))
+    # pass 1: the row statistics over the kept keys
+    m = s.amax(dim=-1, keepdim=True)
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    lse = m + torch.log(torch.exp(s - m).sum(dim=-1, keepdim=True))
+    lse = torch.where(torch.isfinite(lse), lse, torch.full_like(lse,
+                                                               float("inf")))
+    delta = torch.einsum("bqkgh,bqkgh->bkgq",
+                         dog, o.to(f32).reshape(B, Sq, KV, G, hd))
+    # pass 2: the gradients from P rebuilt with the statistics
+    p = torch.exp(s.sub_(lse))
+    dv = torch.einsum("bkgqs,bqkgh->bskh", p, dog)
+    dp = torch.einsum("bqkgh,bskh->bkgqs", dog, vf)
+    ds = p.mul_(dp.sub_(delta[..., None]))
+    del dp
+    dq = torch.einsum("bkgqs,bskh->bqkgh", ds, kf).mul_(scale)
+    dk = torch.einsum("bkgqs,bqkgh->bskh", ds, qg).mul_(scale)
+    return (dq.reshape(B, Sq, H, hd).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
 # ---------------------------------------------------------------------------
 # RWKV6 WKV recurrence
 # ---------------------------------------------------------------------------
@@ -204,3 +267,48 @@ def rwkv_scan_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         state = wf[:, t, :, :, None] * state + kv
     y = torch.stack(ys, dim=1) if ys else torch.zeros_like(rf)
     return y.to(r.dtype), state
+
+
+def rwkv_scan_backward_plain(r, k, v, w, u, dy, dstate=None):
+    """Gradients (dr, dk, dv, dw, du) of ``rwkv_scan_ref`` given the
+    gradient ``dy`` of y and ``dstate`` of the final state (None: zero),
+    by the explicit reverse recurrence in float32. With G the gradient of
+    the state S_{t+1} (starting from ``dstate``) and p_t = r_t . (u k_t),
+    going back in time::
+
+        dk_t = G v_t + r_t u (v_t . dy_t)      dv_t = G^T k_t + p_t dy_t
+        dw_t[i] = sum_j G[i, j] S_t[i, j]      dr_t = S_t dy_t + u k_t (v_t . dy_t)
+        du += r_t k_t (v_t . dy_t)             G <- r_t^T dy_t + diag(w_t) G
+
+    S_t is the state before step t (all of them are kept: the kernel keeps
+    one every 2048 / hd steps and recomputes the rest). Returns dr, dk, dv, dw in their
+    inputs' dtypes and du (H, hd) in u's."""
+    f32 = torch.float32
+    B, S, H, hd = r.shape
+    rf, kf, vf, wf, dyf = (t.to(f32) for t in (r, k, v, w, dy))
+    uf = u.to(f32)[None]
+    state = torch.zeros((B, H, hd, hd), dtype=f32, device=r.device)
+    states = []
+    for t in range(S):
+        states.append(state)
+        state = wf[:, t, :, :, None] * state \
+            + kf[:, t, :, :, None] * vf[:, t, :, None, :]
+    G = (torch.zeros_like(state) if dstate is None
+         else dstate.to(f32).clone())
+    grads = {name: torch.zeros_like(rf) for name in ("r", "k", "v", "w")}
+    du = torch.zeros((H, hd), dtype=f32, device=r.device)
+    for t in reversed(range(S)):
+        r_t, k_t, v_t, dy_t = rf[:, t], kf[:, t], vf[:, t], dyf[:, t]
+        vdy = (v_t * dy_t).sum(-1, keepdim=True)                # (B, H, 1)
+        s_t = states[t]
+        grads["k"][:, t] = torch.einsum("bhij,bhj->bhi", G, v_t) \
+            + r_t * uf * vdy
+        grads["v"][:, t] = torch.einsum("bhij,bhi->bhj", G, k_t) \
+            + (r_t * uf * k_t).sum(-1, keepdim=True) * dy_t
+        grads["w"][:, t] = (G * s_t).sum(-1)
+        grads["r"][:, t] = torch.einsum("bhij,bhj->bhi", s_t, dy_t) \
+            + uf * k_t * vdy
+        du += (r_t * k_t * vdy).sum(0)
+        G = wf[:, t, :, :, None] * G + r_t[..., None] * dy_t[..., None, :]
+    return (grads["r"].to(r.dtype), grads["k"].to(k.dtype),
+            grads["v"].to(v.dtype), grads["w"].to(w.dtype), du.to(u.dtype))

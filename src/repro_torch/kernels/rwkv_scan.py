@@ -24,10 +24,22 @@ It takes hd 16, 32, 64 and 128, float32 and bfloat16, with 16-byte aligned
 inputs. What bounds it now is one block's chain of steps and the SMs that
 hold two blocks (``PERF.md``).
 
-``rwkv_scan`` takes the plain version for CPU (and shape-only ``meta``)
-tensors, launches the kernel for CUDA tensors, and raises for anything
-else; a CUDA tensor never falls back. ``LAUNCHES`` counts the kernel's
-launches; only a launch adds to it.
+The backward, ``rwkv_scan_backward`` (dr, dk, dv, dw, du from the inputs,
+dy and the final state's gradient), is a kernel of its own source,
+``csrc/rwkv_scan_bwd.cu``, built apart so that the forward's library
+stays what it was: one block per (batch, head) walks the recurrence of
+the state's gradient back in time, from the states it keeps at every
+chunk start and recomputes within a chunk (never dividing by the
+decay). ``WKV6Fn`` ties the two kernels together as a
+``torch.autograd.Function`` over the float32 ``u``, which
+``kernels/ops.py`` applies to CUDA tensors (the cast of ``u`` stays
+outside it, so autograd carries du back to u's dtype).
+
+``rwkv_scan`` and ``rwkv_scan_backward`` take the plain versions for CPU
+(and shape-only ``meta``) tensors, launch their kernels for CUDA
+tensors, and raise for anything else; a CUDA tensor never falls back.
+``LAUNCHES`` counts the kernels' launches (``rwkv_scan``,
+``rwkv_scan_bwd``); only a launch adds to it.
 """
 from __future__ import annotations
 
@@ -39,21 +51,28 @@ from . import build as B
 from . import ref
 
 SOURCE = B.CSRC / "rwkv_scan.cu"
+SOURCE_BWD = B.CSRC / "rwkv_scan_bwd.cu"
 NVCC_FLAGS = B.BASE_FLAGS
 HEAD_DIMS = (16, 32, 64, 128)
 
-LAUNCHES = {"rwkv_scan": 0}
+LAUNCHES = {"rwkv_scan": 0, "rwkv_scan_bwd": 0}
 
 _LIB = None
+_BWD_LIB = None
 
 
 def reset_launches() -> None:
-    LAUNCHES["rwkv_scan"] = 0
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
 
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {"wkv6_forward": [_P] * 7 + [_I] * 6 + [_P],
               "wkv6_smem_bytes": [_I, _I]}
+BWD_SIGNATURES = {
+    "wkv6_backward": [_P] * 13 + [_I] * 6 + [_P],
+    "wkv6_backward_scratch": [_I] * 4 + [ctypes.POINTER(ctypes.c_longlong)],
+    "wkv6_backward_smem_bytes": [_I]}
 
 
 def _lib():
@@ -61,6 +80,13 @@ def _lib():
     if _LIB is None:
         _LIB = B.load(SOURCE, NVCC_FLAGS, SIGNATURES)
     return _LIB
+
+
+def _bwd_lib():
+    global _BWD_LIB
+    if _BWD_LIB is None:
+        _BWD_LIB = B.load(SOURCE_BWD, NVCC_FLAGS, BWD_SIGNATURES)
+    return _BWD_LIB
 
 
 def rwkv_scan_plain(r, k, v, w, u):
@@ -104,7 +130,7 @@ def rwkv_scan(r, k, v, w, u):
         return rwkv_scan_plain(r, k, v, w, u)
     _check_kernel_args(r, k, v, w)
     Bn, S, H, hd = r.shape
-    u32 = u.to(device=r.device, dtype=torch.float32).contiguous()
+    u32 = as_u32(u, r)
     y = torch.empty_like(r)
     state = torch.empty((Bn, H, hd, hd), dtype=torch.float32, device=r.device)
     rc = _lib().wkv6_forward(
@@ -115,3 +141,72 @@ def rwkv_scan(r, k, v, w, u):
     B.check(rc, "RWKV scan")
     LAUNCHES["rwkv_scan"] += 1
     return y, state
+
+
+def as_u32(u, r):
+    """u as the kernels read it: float32, contiguous, on r's device."""
+    return u.to(device=r.device, dtype=torch.float32).contiguous()
+
+
+def rwkv_scan_backward(r, k, v, w, u, dy, dstate=None):
+    """Gradients (dr, dk, dv, dw, du) of ``rwkv_scan(r, k, v, w, u)`` given
+    the gradient ``dy`` of y (r's shape) and ``dstate`` of the final state
+    ((B, H, hd, hd) float32, or None for zero). dr, dk, dv, dw come in
+    their inputs' dtypes, du (H, hd) in u's."""
+    _check_shapes(r, k, v, w, u)
+    if dy.shape != r.shape:
+        raise ValueError(f"dy {tuple(dy.shape)} != r {tuple(r.shape)}")
+    if B.route(r, "RWKV scan backward") == "plain":
+        return ref.rwkv_scan_backward_plain(r, k, v, w, u, dy, dstate)
+    _check_kernel_args(r, k, v, w)
+    dy = B.aligned(dy.to(r.dtype))
+    Bn, S, H, hd = r.shape
+    if dstate is not None:
+        if tuple(dstate.shape) != (Bn, H, hd, hd):
+            raise ValueError(f"dstate {tuple(dstate.shape)} != "
+                             f"{(Bn, H, hd, hd)}")
+        dstate = B.aligned(dstate.to(device=r.device, dtype=torch.float32))
+    u32 = as_u32(u, r)
+    lib = _bwd_lib()
+    floats = ctypes.c_longlong(0)
+    B.check(lib.wkv6_backward_scratch(Bn, S, H, hd, ctypes.byref(floats)),
+            "RWKV scan backward scratch")
+    scratch = torch.empty((floats.value,), dtype=torch.float32,
+                          device=r.device)
+    grads = [torch.empty_like(r) for _ in range(4)]
+    du_part = torch.empty((Bn, H, hd), dtype=torch.float32, device=r.device)
+    rc = lib.wkv6_backward(
+        r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+        u32.data_ptr(), dy.data_ptr(),
+        None if dstate is None else dstate.data_ptr(),
+        *(g.data_ptr() for g in grads), du_part.data_ptr(),
+        scratch.data_ptr(), int(r.dtype == torch.bfloat16), Bn, S, H, hd,
+        r.device.index or 0, B.stream_of(r))
+    B.check(rc, "RWKV scan backward")
+    LAUNCHES["rwkv_scan_bwd"] += 1
+    dr, dk, dv, dw = grads
+    return dr, dk, dv, dw, du_part.sum(0).to(u.dtype)
+
+
+class WKV6Fn(torch.autograd.Function):
+    """``rwkv_scan`` with its backward kernel, over the float32 ``u32``
+    (``as_u32``): returns (y, final state); the backward launches
+    ``rwkv_scan_backward``'s kernel, with the state's gradient when the
+    caller used the state and zero otherwise. For CUDA tensors
+    (``kernels/ops.py``)."""
+
+    @staticmethod
+    def forward(r, k, v, w, u32):
+        return rwkv_scan(r, k, v, w, u32)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs)
+        ctx.set_materialize_grads(False)
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        r, k, v, w, u32 = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros_like(r)
+        return rwkv_scan_backward(r, k, v, w, u32, dy, dstate)

@@ -5,9 +5,11 @@ the reference's names and its ``(d_in, d_out)`` weight layout (``x @ w``);
 norm and softmax statistics in float32.
 
 Full-sequence attention runs the flash-attention kernel
-(``ops.flash_attention``) where the reference calls its jnp
-``blocked_attention``; decode attention stays plain PyTorch, as in the
-reference. ``chunked_softmax_xent`` belongs to training and is not here.
+(``ops.flash_attention``, forward and, when autograd asks, backward) where
+the reference calls its jnp ``blocked_attention``; decode attention stays
+plain PyTorch, as in the reference. ``chunked_softmax_xent`` is the
+training loss: cross-entropy over sequence chunks, one chunk's float32
+logits alive at a time.
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..kernels import ops
 
@@ -30,8 +33,10 @@ class Params(nn.Module):
     """A nested dict of weights as an ``nn.Module``: dicts become
     submodules, lists ``nn.ModuleList``s, tensors ``nn.Parameter``s.
     ``p[key]`` reads any of them, so the functions below take a ``Params``
-    or a plain dict alike. The parameters do not require gradients: this
-    tree serves (no autograd graph is kept)."""
+    or a plain dict alike. The parameters do not require gradients: a
+    served tree keeps no autograd graph. Training takes the plain tree of
+    the same tensors (``params_tree``) and asks for the gradients it
+    needs."""
 
     def __init__(self, tree: dict):
         super().__init__()
@@ -46,6 +51,24 @@ class Params(nn.Module):
 
     def __getitem__(self, key: str):
         return getattr(self, key)
+
+
+def params_tree(p):
+    """A ``Params`` module as the plain dict-and-list tree of its tensors
+    (the same storage, detached), which ``repro_torch.tree`` and the
+    driver walk; a plain tree passes through."""
+    if isinstance(p, nn.ModuleList):
+        return [params_tree(m) for m in p]
+    if isinstance(p, nn.Module):
+        out = {name: params_tree(m) for name, m in p.named_children()}
+        out.update({name: t.detach()
+                    for name, t in p.named_parameters(recurse=False)})
+        return out
+    if isinstance(p, dict):
+        return {key: params_tree(val) for key, val in p.items()}
+    if isinstance(p, (list, tuple)):
+        return [params_tree(val) for val in p]
+    return p
 
 
 # ---------------------------------------------------------------------------
@@ -297,3 +320,38 @@ def logits_fn(params, x, cfg):
         mask = torch.arange(cfg.padded_vocab, device=x.device) < cfg.vocab
         logits = logits.masked_fill(~mask, NEG_INF)
     return logits
+
+
+def _chunk_xent(head, xc, yc, vocab: int):
+    """The summed cross-entropy of one chunk: float32 logits over the
+    padded vocab, its tail masked to ``NEG_INF``."""
+    lg = (xc @ head.T).to(torch.float32)
+    if vocab < lg.shape[-1]:
+        live = torch.arange(lg.shape[-1], device=lg.device) < vocab
+        lg = lg.masked_fill(~live, NEG_INF)
+    lse = torch.logsumexp(lg, dim=-1)
+    tgt = torch.gather(lg, -1, yc[..., None])[..., 0]
+    return torch.sum(lse - tgt)
+
+
+def chunked_softmax_xent(params, x, labels, cfg, chunk: int = 128):
+    """Mean cross-entropy without the (B, S, V) logits: the sequence in
+    chunks of ``chunk`` (the last one the remainder), each chunk's sum
+    added in order, as the reference's scan does. Under autograd each
+    chunk runs under ``torch.utils.checkpoint``, so its float32 logits
+    are rebuilt in the backward and at most one chunk's exist at a time
+    (gemma3-12b: 134 MB per 128 tokens, against 4.3 GB for 4096). x:
+    (B, S, d); labels: (B, S) int64."""
+    B, S, _ = x.shape
+    chunk = min(chunk, S)
+    head = params["lm_head"]
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for s0 in range(0, S, chunk):
+        xc, yc = x[:, s0:s0 + chunk], labels[:, s0:s0 + chunk]
+        if torch.is_grad_enabled():
+            part = checkpoint(_chunk_xent, head, xc, yc, cfg.vocab,
+                              use_reentrant=False, preserve_rng_state=False)
+        else:
+            part = _chunk_xent(head, xc, yc, cfg.vocab)
+        total = total + part
+    return total / (B * S)

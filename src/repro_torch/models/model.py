@@ -1,7 +1,7 @@
 """Public model API (the port of ``repro/models/model.py``):
-``build_model(cfg, device) -> Model(init, prefill, decode, init_cache)``
-for the families ``dense`` (with gemma3's sliding-window layers) and
-``ssm``.
+``build_model(cfg, device) -> Model(init, prefill, decode, init_cache,
+loss_fn)`` for the families ``dense`` (with gemma3's sliding-window
+layers) and ``ssm``.
 
 Batch contract: {"tokens": (B, S) int64, "labels": (B, S) int64}.
 
@@ -24,8 +24,15 @@ reference's decode overwrites a position still inside the window (or
 reads positions in the wrong slots) and departs from its own prefill;
 the port's does not.
 
-``loss_fn`` belongs to training and is not ported yet; nor are the
-families moe, hybrid, audio and vlm (ROADMAP Queue A item 11).
+Training: ``loss_fn(params, batch)`` is the mean next-token
+cross-entropy (``layers.chunked_softmax_xent``) of the stack run with
+every layer rematerialised (``stack_forward(remat=True)``). It takes a
+``Params`` module or the plain tree of ``layers.params_tree`` whose
+leaves require gradients, and runs outside ``inference_mode``;
+``prefill`` and ``decode`` keep theirs. The reference adds ``0.01 * aux``
+(the mixture-of-experts balance loss), which is 0 for the ported
+families. The families moe, hybrid, audio and vlm are not ported yet
+(ROADMAP Queue A item 11).
 """
 from __future__ import annotations
 
@@ -49,6 +56,7 @@ class Model(NamedTuple):
     prefill: Callable         # (params, batch, cache_len) -> (last_logits, caches)
     decode: Callable          # (params, caches, token (B,1), pos) -> (logits, caches)
     init_cache: Callable      # (batch_size, seq_len) -> zero caches
+    loss_fn: Callable         # (params, batch) -> mean cross-entropy
 
 
 def _dtype(cfg):
@@ -121,6 +129,15 @@ def build_model(cfg: ArchConfig, device=None) -> Model:
         last = L.logits_fn(params["embedding"], x[:, -1:], cfg)
         return last, caches
 
+    def loss_fn(params, batch):
+        """Mean cross-entropy of ``batch["labels"]`` (B, S) given
+        ``batch["tokens"]`` (B, S), every layer under remat."""
+        x = L.embed(params["embedding"], batch["tokens"]).to(dtype)
+        x, _ = T.stack_forward(pattern, params["layers"], cfg, x, remat=True)
+        x = L.rmsnorm(params["final_norm"], x)
+        return L.chunked_softmax_xent(params["embedding"], x,
+                                      batch["labels"], cfg)
+
     @torch.inference_mode()
     def decode(params, caches, token, pos: int):
         """token: (B, 1) int64; pos: the next position index."""
@@ -162,7 +179,7 @@ def build_model(cfg: ArchConfig, device=None) -> Model:
         return [one(kind) for kind in pattern]
 
     return Model(cfg=cfg, device=dev, init=init, prefill=prefill,
-                 decode=decode, init_cache=init_cache)
+                 decode=decode, init_cache=init_cache, loss_fn=loss_fn)
 
 
 def make_batch(gen: torch.Generator, cfg: ArchConfig, batch_size: int,

@@ -20,6 +20,9 @@ parameter tree per layer and runs the stack as a Python loop
 """
 from __future__ import annotations
 
+import torch
+from torch.utils.checkpoint import checkpoint
+
 from . import layers as L
 from . import rwkv as R
 
@@ -133,11 +136,22 @@ def stack_init(gen, cfg, dtype, pattern=None):
     return [layer_init(kind, gen, cfg, dtype) for kind in pattern]
 
 
-def stack_forward(pattern, layers, cfg, x, want_cache=False):
-    """Returns (x, per-layer caches)."""
+def stack_forward(pattern, layers, cfg, x, want_cache=False, remat=False):
+    """Returns (x, per-layer caches). ``remat``: under autograd, each layer
+    runs under ``torch.utils.checkpoint`` (non-reentrant), so only its
+    input is kept and its activations are rebuilt in the backward. The
+    reference checkpoints a cycle block (``jax.checkpoint`` over the
+    scanned block); a layer at a time gives the same numbers with less
+    memory, since the port keeps one tree per layer."""
     caches = []
     for kind, p in zip(pattern, layers):
-        x, cache = layer_forward(kind, p, cfg, x, want_cache)
+        if remat and torch.is_grad_enabled():
+            # the layers draw no random numbers: no RNG state to replay
+            x, cache = checkpoint(layer_forward, kind, p, cfg, x, want_cache,
+                                  use_reentrant=False,
+                                  preserve_rng_state=False)
+        else:
+            x, cache = layer_forward(kind, p, cfg, x, want_cache)
         caches.append(cache)
     return x, caches
 

@@ -37,7 +37,13 @@ def _inputs(shape, seed):
 @pytest.mark.parametrize("bits", [8, 4])
 @pytest.mark.parametrize("rows,cols,group", [(64, 256, 256), (33, 512, 128),
                                              (9, 1024, 1024), (5, 4096, 2048),
-                                             (3, 1152, 384)])
+                                             (3, 1152, 384),
+                                             # groups below 128, a ragged
+                                             # tail at g 1 and 2
+                                             (5, 7, 1), (7, 6, 2),
+                                             (10, 12, 4), (33, 3840, 8),
+                                             (9, 80, 16), (3, 480, 32),
+                                             (4, 576, 64)])
 def test_kernels_match_plain(bits, rows, cols, group):
     dev = _cuda()
     x, u = _inputs((rows, cols), rows)
@@ -113,3 +119,21 @@ def test_compressor_on_card_equals_cpu(shard_safe, dither):
     decoded = comp.decode(on_card)
     for k in tree:
         assert torch.equal(_bits(applied[k]), _bits(decoded[k]))
+
+
+@pytest.mark.parametrize("cols", [3840, 2560, 15360])
+def test_small_group_leaf_takes_kernel_on_card(cols):
+    """A shard-safe leaf whose group is below 128 (LM widths: D 3840 gives
+    8, 2560 16, 15360 32) launches the encode kernel with the in-kernel
+    dither for ``"hash"``, with the CPU plain route's bits."""
+    dev = _cuda()
+    x, _ = _inputs((64, cols), 3)
+    comp = TC.block_quant(8, 256, dither="hash", shard_safe=True)
+    before = dict(tqb.LAUNCHES)
+    on_card = comp.encode([7], {"w": x.to(dev)})["w"]
+    assert tqb.LAUNCHES["encode_seeded_small"] == \
+        before["encode_seeded_small"] + 1
+    on_cpu = comp.encode([7], {"w": x})["w"]
+    assert on_card.group == TC.group_size(cols, 256) < 128
+    assert torch.equal(on_card.codes.cpu(), on_cpu.codes)
+    assert torch.equal(_bits(on_card.scales), _bits(on_cpu.scales))

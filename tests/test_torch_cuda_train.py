@@ -1,0 +1,218 @@
+"""Training on the card: the backward kernels of flash attention and the
+WKV6 scan against their plain versions (every head dim, dtype and mask
+they take), their launch counts through autograd, the refusal of what
+they do not take, a smoke-preset train step and the training example.
+Every test here is marked ``cuda`` and skips without a CUDA device; the
+module imports no JAX, so it also runs on a machine without it:
+
+    python -m pytest -q -m cuda tests/test_torch_cuda_train.py
+
+Tolerances, each output against the plain version on the same inputs,
+max |got - want| <= tol * max |want|: 1e-3 in float32 (both accumulate in
+float32, the sums of a backward pass in another order over thousands of
+terms), 2e-2 in bfloat16 (the gradients are rounded to bf16, a bf16 ulp
+is 2^-8 to 2^-7 of the value).
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import flash_attention as tfa
+from repro_torch.kernels import ops
+from repro_torch.kernels import ref
+from repro_torch.kernels import rwkv_scan as trs
+from repro_torch.tree import tree_leaves
+
+pytestmark = pytest.mark.cuda
+
+TOL = {torch.float32: 1e-3, torch.bfloat16: 2e-2}
+
+
+def _cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the GPU machine)")
+    return torch.device("cuda")
+
+
+def _normal(shape, seed, dtype, dev):
+    x = np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
+    return torch.from_numpy(x).to(dev, dtype)
+
+
+def _close(got, want, dtype, what=""):
+    assert got.dtype == want.dtype, what
+    err = float((got.float() - want.float()).abs().max())
+    scale = float(want.float().abs().max())
+    assert err <= TOL[dtype] * scale, (what, err, scale)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("hd", [32, 64, 128, 256])
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,causal,window", [
+    (2, 200, 200, 4, 2, True, 0),       # ragged against the 64-row tile
+    (1, 256, 256, 8, 2, True, 48),      # sliding window
+    (1, 300, 300, 4, 1, True, 200),     # the window ends inside a tile
+    (2, 77, 130, 4, 4, False, 0),       # non-causal, Sq != Sk
+    (1, 130, 77, 6, 2, True, 0),        # causal, Sq > Sk
+])
+def test_flash_backward_kernel_matches_plain(B, Sq, Sk, H, KV, causal,
+                                             window, hd, dtype):
+    dev = _cuda()
+    q = _normal((B, Sq, H, hd), 0, dtype, dev)
+    k = _normal((B, Sk, KV, hd), 1, dtype, dev)
+    v = _normal((B, Sk, KV, hd), 2, dtype, dev)
+    do = _normal((B, Sq, H, hd), 3, dtype, dev)
+    o = tfa.flash_attention(q, k, v, causal=causal, window=window)
+    got = tfa.flash_attention_backward(q, k, v, o, do, causal=causal,
+                                       window=window)
+    torch.cuda.synchronize()
+    want = ref.flash_attention_backward_plain(q, k, v, o, do, causal=causal,
+                                              window=window)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        _close(g, w, dtype, name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+@pytest.mark.parametrize("with_dstate", [False, True],
+                         ids=["no-dstate", "dstate"])
+def test_wkv6_backward_kernel_matches_plain(hd, dtype, with_dstate):
+    """Several chunks of 2048 / hd steps, and a ragged last one."""
+    dev = _cuda()
+    B, S, H = 2, 4096 // hd + 37, 3
+    r, k, v = (_normal((B, S, H, hd), i, dtype, dev) for i in range(3))
+    w = torch.exp(-torch.exp(_normal((B, S, H, hd), 3, torch.float32, dev)
+                             - 2.0)).to(dtype)
+    u = 0.3 * _normal((H, hd), 4, torch.float32, dev)
+    dy = _normal((B, S, H, hd), 5, dtype, dev)
+    dstate = _normal((B, H, hd, hd), 6, torch.float32, dev) \
+        if with_dstate else None
+    got = trs.rwkv_scan_backward(r, k, v, w, u, dy, dstate)
+    torch.cuda.synchronize()
+    want = trs.ref.rwkv_scan_backward_plain(r, k, v, w, u, dy, dstate)
+    for name, g, wnt in zip(("dr", "dk", "dv", "dw", "du"), got, want):
+        _close(g, wnt, dtype if name != "du" else torch.float32, name)
+
+
+def test_autograd_launches_forward_and_backward_kernels():
+    """Through ``ops``, a forward launches its kernel once and the backward
+    its backward kernel once; the gradients are the plain backward's."""
+    dev = _cuda()
+    tfa.reset_launches()
+    trs.reset_launches()
+    q = _normal((1, 128, 4, 64), 0, torch.float32, dev).requires_grad_()
+    k = _normal((1, 128, 2, 64), 1, torch.float32, dev).requires_grad_()
+    v = _normal((1, 128, 2, 64), 2, torch.float32, dev).requires_grad_()
+    out = ops.flash_attention(q, k, v, causal=True, window=40)
+    assert tfa.LAUNCHES == {"flash_attention": 1, "flash_attention_bwd": 0}
+    do = torch.ones_like(out)
+    grads = torch.autograd.grad(out, (q, k, v), do)
+    assert tfa.LAUNCHES == {"flash_attention": 1, "flash_attention_bwd": 1}
+    want = ref.flash_attention_backward_plain(q.detach(), k.detach(),
+                                              v.detach(), out.detach(), do,
+                                              causal=True, window=40)
+    for g, w in zip(grads, want):
+        _close(g, w, torch.float32)
+
+    r, kk, vv = (_normal((1, 64, 2, 16), i, torch.bfloat16,
+                         dev).requires_grad_() for i in range(3))
+    w = torch.full((1, 64, 2, 16), 0.9, dtype=torch.bfloat16, device=dev,
+                   requires_grad=True)
+    u = _normal((2, 16), 4, torch.bfloat16, dev).requires_grad_()
+    y, _ = ops.rwkv_wkv(r, kk, vv, w, u)
+    assert trs.LAUNCHES == {"rwkv_scan": 1, "rwkv_scan_bwd": 0}
+    gr = torch.autograd.grad(y.float().sum(), (r, kk, vv, w, u))
+    assert trs.LAUNCHES == {"rwkv_scan": 1, "rwkv_scan_bwd": 1}
+    # u's gradient comes back in u's dtype through the cast outside the
+    # Function
+    assert gr[4].dtype == torch.bfloat16 and gr[4].shape == u.shape
+
+
+def test_backward_refuses_what_the_kernels_do_not_take():
+    """A CUDA tensor never falls back: a head dim outside the kernels'
+    raises in the backward wrappers, as does a float16 tensor."""
+    dev = _cuda()
+    q = _normal((1, 16, 2, 48), 0, torch.float32, dev)
+    k = _normal((1, 16, 1, 48), 1, torch.float32, dev)
+    with pytest.raises(ValueError, match="hd"):
+        tfa.flash_attention_backward(q, k, k, q, q)
+    r = _normal((1, 8, 1, 24), 0, torch.float32, dev)
+    u = _normal((1, 24), 1, torch.float32, dev)
+    with pytest.raises(ValueError, match="hd"):
+        trs.rwkv_scan_backward(r, r, r, r, u, r)
+    h = _normal((1, 16, 2, 64), 0, torch.float16, dev)
+    with pytest.raises(TypeError):
+        tfa.flash_attention_backward(h, h[:, :, :1], h[:, :, :1], h, h)
+
+
+def test_smoke_train_step_on_the_card():
+    """One FedMM round of the reduced gemma3 (hd 32, window 16) and rwkv6
+    (hd 16) on the card: finite loss, every flash layer launched twice
+    forward (the step and its rematerialisation) and once backward per
+    client, the uplink encoded."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.fed import trainer as FT
+    from repro_torch.launch.train import sample_batch
+    from repro_torch.models.model import build_model
+    _cuda()
+    for arch, counter, fwd, bwd in (
+            ("gemma3-12b", tfa.LAUNCHES, "flash_attention",
+             "flash_attention_bwd"),
+            ("rwkv6-3b", trs.LAUNCHES, "rwkv_scan", "rwkv_scan_bwd")):
+        cfg = dataclasses.replace(configs.get(arch).reduced(), vocab=512)
+        model = build_model(cfg)
+        fcfg = FT.FedLMConfig(n_clients=2, rho=0.05, quant_bits=8,
+                              client_mode="logical")
+        state = FT.init_state(
+            model, torch.Generator(device="cuda").manual_seed(0), fcfg)
+        batch = sample_batch(torch.Generator().manual_seed(0), cfg, 2, 2, 64,
+                             model.device)
+        step = FT.make_train_step(model, fcfg)
+        for key in list(counter):
+            counter[key] = 0
+        state, m = step(state, batch, torch.Generator().manual_seed(1), 0.5)
+        torch.cuda.synchronize()
+        assert np.isfinite(float(m["loss"]))
+        assert counter[fwd] == 2 * 2 * cfg.n_layers
+        assert counter[bwd] == 2 * cfg.n_layers
+        assert float(m["comm_bytes"]) > 0
+        assert all(bool(torch.isfinite(x).all())
+                   for x in tree_leaves(state.s_hat))
+
+
+def _heldout_losses(arch, preset, state, seed=0):
+    """The loss of T(Shat) on one held-out batch (four times the entry
+    point's default batch of 8 rows of 128 tokens, from seed + 2) at the
+    entry point's initial state (made again from ``seed``) and at
+    ``state``."""
+    from repro_torch import configs
+    from repro_torch.fed import trainer as FT
+    from repro_torch.launch.train import preset_config, sample_batch
+    from repro_torch.models.model import build_model
+    cfg = preset_config(configs.get(arch), preset)
+    model = build_model(cfg, device="cuda")
+    fcfg = FT.FedLMConfig(n_clients=4, rho=0.05,  # the CLI's
+                          client_mode="logical")
+    first = FT.init_state(model, torch.Generator(device="cuda").manual_seed(
+        seed), fcfg)
+    batch = sample_batch(torch.Generator().manual_seed(seed + 2), cfg, 4, 8,
+                         128, model.device)
+    flat = {k: v.reshape((-1,) + tuple(v.shape[2:])) for k, v in batch.items()}
+    with torch.no_grad():
+        return [float(model.loss_fn(FT.T_map(s.s_hat, fcfg), flat))
+                for s in (first, state)]
+
+
+def test_train_lm_example_on_the_card():
+    """``examples/train_lm.py`` (the ``100m`` preset by default) trains on
+    the card: finite losses, the held-out loss falls."""
+    _cuda()
+    from repro_torch.examples.train_lm import run
+    out = run(["--arch", "rwkv6-3b", "--steps", "20", "--log-every", "10"])
+    losses = [m["loss"] for m in out["history"]]
+    assert all(np.isfinite(losses))
+    before, after = _heldout_losses("rwkv6-3b", "100m", out["state"])
+    assert after < before
