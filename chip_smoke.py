@@ -40,25 +40,33 @@ points at full width and checks what comes out:
 3. the paper's figures (``repro_torch.benchmarks``): Fig. 1 (FedMM against
    naive parameter-space aggregation) and Fig. 2 (control variates) of
    federated dictionary learning at the paper's sizes on its three data
-   settings, with the figures' outcomes as gates, and 10 FedMM rounds run
-   on the GPU and on the CPU from the same data and draws; then Fig. 3
-   (FedMM-OT, Algorithm 3, against FedAdam: ICNN potentials, L2-UVP
-   against the closed-form Gaussian map) at the paper's ``--full`` sizes,
-   dims 16, 32 and 64 for 100 rounds, gated at d = 16, with 10 FedMM-OT
-   rounds run on the GPU and on the CPU from the same draws. These run
-   after phase 1 and before phase 2; their leaves are too small for the
-   kernel route, so they launch no kernel of the port;
+   settings over 150 of its 300 rounds, with the figures' outcomes as
+   gates, and 10 FedMM rounds run on the GPU and on the CPU from the same
+   data and draws; then Fig. 3 (FedMM-OT, Algorithm 3, against FedAdam:
+   ICNN potentials, L2-UVP against the closed-form Gaussian map) at the
+   paper's ``--full`` sizes, dims 16, 32 and 64, gated at d = 16 over the
+   paper's 100 rounds (32 and 64, reported only, over 20), with 10
+   FedMM-OT rounds run on the GPU and on the CPU from the same draws.
+   These run in a child process of the script (``start_figures``) beside
+   phase 1's mesh and scheduler runs, which like them are bound by the
+   host and gate no time, and their records are printed after phase 1's;
+   their leaves are too small for the kernel route, so they launch no
+   kernel of the port;
 4. training (the ``train`` phase, after serving): the backward kernels of
-   flash attention and WKV6 against their plain versions, FedMM training
+   flash attention (fed the forward's log-sum-exp, the same bits on a
+   second launch) and WKV6 against their plain versions, FedMM training
    of gemma3-12b (6 layers) and rwkv6-3b (8 layers) at full width through
    ``repro_torch.fed.trainer.make_train_step`` (the forward and backward
    kernels in every layer, ``qb_encode`` on every leaf of at least 65,536
    elements), ``repro_torch.launch.train`` at the ``100m`` and ``smoke``
    presets, and three smoke rounds on the card against the CPU.
 
-Each phase prints one JSON line; the last line is ``{"ok": true,
+Each phase prints one JSON line, and a line on standard error with the
+seconds since the start; the last line is ``{"ok": true,
 "device": {...}}``. Any failed check raises and the script exits
-non-zero. Without a CUDA device it exits non-zero and prints no result.
+non-zero; so does a run still going after 1170 s, which first prints
+every thread's stack on standard error. Without a CUDA device it exits
+non-zero and prints no result.
 TF32 is off for every float32 product (``allow_tf32 = False`` for matmul
 and cuDNN).
 
@@ -145,18 +153,23 @@ LM_SOURCES = {"flash_attention": "src/repro_torch/kernels/csrc/flash_attention.c
               "rwkv_scan_bwd": "src/repro_torch/kernels/csrc/rwkv_scan_bwd.cu"}
 
 # the figures phase: the paper's --full sizes (configs/dictlearn.py, the
-# reference's benchmarks/run.py), the Fig. 2 alphas, and the GPU-vs-CPU
-# check: 10 FedMM rounds, identity compressor, losses within DEVICE_RTOL,
-# the port's parity tolerance where ISTA's iterations compound
-# (RTOL_ISTA in tests/test_torch_figures.py)
-FIG_ROUNDS = 300
+# reference's benchmarks/run.py) over FIG_ROUNDS of its 300 rounds (the
+# run's time limit; a trajectory's first rounds do not depend on its
+# length), the Fig. 2 alphas, and the GPU-vs-CPU check: 10 FedMM rounds,
+# identity compressor, losses within DEVICE_RTOL, the port's parity
+# tolerance where ISTA's iterations compound (RTOL_ISTA in
+# tests/test_torch_figures.py)
+FIG_ROUNDS = 150
 FIG2_ALPHAS = (0.0, 0.01)
 FIG2_LOSS_RTOL = 0.01
 DEVICE_CHECK_ROUNDS, DEVICE_RTOL = 10, 1e-4
 # Fig. 3 at the reference's benchmarks/run.py --full: dims and rounds; the
 # gates and the GPU-vs-CPU check (10 FedMM-OT rounds, L2-UVP within
-# DEVICE_RTOL) at FIG3_GATE_DIM
+# DEVICE_RTOL) at FIG3_GATE_DIM. The wider dims, reported and not gated
+# (FedMM-OT is not finite there from round 2 or 3), run FIG3_WIDE_ROUNDS
+# of the 100: the run's time limit
 FIG3_DIMS, FIG3_ROUNDS, FIG3_GATE_DIM = (16, 32, 64), 100, 16
+FIG3_WIDE_ROUNDS = 20
 
 # operations per element, counted from the kernels' source: the rounding
 # (abs, max, div, mul, floor, sub, compare, add, and for the dequantize two
@@ -166,8 +179,26 @@ FIG3_DIMS, FIG3_ROUNDS, FIG3_GATE_DIM = (16, 32, 64), 100, 16
 OPS_ROUND, OPS_DEQ, OPS_HASH, OPS_REDUCE = 8, 3, 12, 6
 
 
+# the script has 1200 s: a run still going after WATCHDOG_S prints every
+# thread's stack to standard error and exits non-zero
+WATCHDOG_S = 1170
+T_START = time.perf_counter()
+# the argument that makes this script the child of start_figures
+FIGURES_CHILD = "--figures-child"
+PROGRESS_TAG = ["chip_smoke"]
+
+
+def progress(what: str) -> None:
+    """One line on standard error with the seconds since the script began:
+    where a run that was stopped stood, and how long each phase took."""
+    print(f"{PROGRESS_TAG[0]} {time.perf_counter() - T_START:8.1f} s  "
+          f"{what}", file=sys.stderr, flush=True)
+
+
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+    if isinstance(obj, dict) and "phase" in obj:
+        progress(f"{obj['phase']} done")
 
 
 def card_line() -> str:
@@ -1573,6 +1604,10 @@ def gemma3_attention_checks(gen, checks: list) -> dict:
             entry["bound_ms"], entry["bound_by"] = bound(nbytes, flops,
                                                          BF16_OPS_PER_S)
             entry["ms"] = time_ms(call, 10)
+            # the same launch writing each row's log-sum-exp (the train
+            # path's forward)
+            entry["ms_with_lse"] = time_ms(lambda: fa.flash_attention(
+                q, k, v, causal=True, window=window, return_lse=True), 10)
             entry["pct_of_bound"] = 100 * entry["bound_ms"] / entry["ms"]
             entry["tflops"] = flops / (entry["ms"] * 1e-3) / 1e12
             entry["plain_ms"] = time_ms(
@@ -1655,6 +1690,8 @@ def lm_kernel_checks():
     flash["bound_ms"], flash["bound_by"] = bound(
         nbytes, 4 * hd * pairs * B * H, BF16_OPS_PER_S)
     flash["ms"] = time_ms(lambda: fa.flash_attention(q, k, v), 10)
+    flash["ms_with_lse"] = time_ms(lambda: fa.flash_attention(
+        q, k, v, return_lse=True), 10)
     flash["tflops"] = 4 * hd * pairs * B * H / (flash["ms"] * 1e-3) / 1e12
     flash["plain_ms"] = time_ms(lambda: fa.flash_attention_plain(q, k, v),
                                 2, 1)
@@ -1741,6 +1778,60 @@ def _free() -> None:
     import torch
     gc.collect()
     torch.cuda.empty_cache()
+
+
+def start_figures(profile: bool):
+    """The figures and Fig. 3 phases in a child process of this script
+    (``FIGURES_CHILD``), started beside the mesh and scheduler phases:
+    both are bound by the host, neither gates a time, and the figures
+    launch no kernel of the port. Returns (process, its stdout lines as
+    a reader thread collects them, the thread)."""
+    import threading
+    cmd = [sys.executable, str(Path(__file__).resolve()), FIGURES_CHILD]
+    child = subprocess.Popen(cmd + (["--profile"] if profile else []),
+                             stdout=subprocess.PIPE, text=True)
+    lines: list = []
+    reader = threading.Thread(target=lambda: lines.extend(child.stdout),
+                              daemon=True)
+    reader.start()
+    return child, lines, reader
+
+
+def join_figures(started) -> None:
+    """Wait for the child of ``start_figures`` and print its records here,
+    in the order of the phases; its failure (a gate, a crash) fails the
+    run, with its stack on standard error."""
+    child, lines, reader = started
+    rc = child.wait()
+    reader.join()
+    for line in lines:
+        print(line, end="", flush=True)
+    require(rc == 0, f"the figures phases failed (exit {rc})")
+
+
+def stop_figures(started) -> None:
+    """Stop the child of ``start_figures`` if it still runs."""
+    child = started[0]
+    if child.poll() is None:
+        child.kill()
+        child.wait()
+
+
+def figures_child(profile: bool) -> int:
+    """The child of ``start_figures``: the figures and Fig. 3 phases,
+    their records on standard output. It dies with this script (Linux's
+    parent-death signal), so a run stopped early leaves no process."""
+    import signal
+    libc = ctypes.CDLL(None, use_errno=True)
+    libc.prctl(1, int(signal.SIGKILL))           # PR_SET_PDEATHSIG
+    if os.getppid() == 1:                         # the parent is gone
+        return 1
+    PROGRESS_TAG[0] = "chip_smoke[figures]"
+    card = card_line()
+    figures(card, profile)
+    _free()
+    fig3_phase(card, profile)
+    return 0
 
 
 def _check_served(cfg, toks, info, new_tokens) -> None:
@@ -2077,14 +2168,18 @@ def fig3_phase(card: str, profile: bool) -> list:
 
     kernel_launches0 = sum(qb.LAUNCHES.values())
     t0 = time.perf_counter()
-    rows = fig3.main(dims=FIG3_DIMS, rounds=FIG3_ROUNDS, device="cuda")
+    rounds = {d: FIG3_ROUNDS if d == FIG3_GATE_DIM else FIG3_WIDE_ROUNDS
+              for d in FIG3_DIMS}
+    rows = [row for d in FIG3_DIMS
+            for row in fig3.main(dims=(d,), rounds=rounds[d], device="cuda")]
     records = []
     for row in rows:
         mm, fa = row["fedmm_ot_curve"], row["fedadam_curve"]
         finite = (row["fedmm_ot_first_nonfinite"] is None
                   and row["fedadam_first_nonfinite"] is None)
+        n_rounds = rounds[row["dim"]]
         records.append({
-            "phase": "fig3", "dim": row["dim"], "rounds": FIG3_ROUNDS,
+            "phase": "fig3", "dim": row["dim"], "rounds": n_rounds,
             "fedmm_ot_curve": mm, "fedadam_curve": fa,
             "fedmm_ot_first_nonfinite": row["fedmm_ot_first_nonfinite"],
             "fedadam_first_nonfinite": row["fedadam_first_nonfinite"],
@@ -2092,8 +2187,8 @@ def fig3_phase(card: str, profile: bool) -> list:
             else None,
             "seconds_fedmm_ot": row["seconds_fedmm_ot"],
             "seconds_fedadam": row["seconds_fedadam"],
-            "rounds_per_s_fedmm_ot": FIG3_ROUNDS / row["seconds_fedmm_ot"],
-            "rounds_per_s_fedadam": FIG3_ROUNDS / row["seconds_fedadam"],
+            "rounds_per_s_fedmm_ot": n_rounds / row["seconds_fedmm_ot"],
+            "rounds_per_s_fedadam": n_rounds / row["seconds_fedadam"],
             "card": card})
         emit(records[-1])
         if row["dim"] == FIG3_GATE_DIM:
@@ -2248,11 +2343,15 @@ def backward_kernel_checks():
     """The two backward kernels against their plain versions at the train
     path's shapes, float32 and bf16: flash at gemma3's (B 1, S 2048, H 16,
     KV 8, hd 256; causal, and the window of 1024) and phi3's (H 40, KV 10,
-    hd 128, causal); WKV6 at rwkv6's (B 1, S 2048, H 40, hd 64). In bf16
-    the planted faults (flash: one 64-key tile's share of dK dropped, the
-    window's edge moved by one; WKV6: one step of G skipped, dw taken from
-    S_{t+1}) must fail the limit. Times, bounds and SDPA's backward beside.
-    Returns (phase record, kernel rows)."""
+    hd 128, causal), fed the forward's log-sum-exp and held against the
+    plain backward that computes its own; WKV6 at rwkv6's (B 1, S 2048,
+    H 40, hd 64). Two flash launches on the same inputs must give the
+    same bits (no atomics). In bf16 the planted faults (flash: one 64-key
+    tile's share of dK dropped, the window's edge moved by one, a 64-row
+    query tile's lse taken from its neighbour, run through the kernels;
+    WKV6: one step of G skipped, dw taken from S_{t+1}) must fail the
+    limit. Times, bounds and SDPA's backward beside. Returns (phase
+    record, kernel rows)."""
     import torch
     import torch.nn.functional as F
     from repro_torch import configs
@@ -2297,13 +2396,22 @@ def backward_kernel_checks():
             k = _randn((1, S, KV, hd), gen, dtype)
             v = _randn((1, S, KV, hd), gen, dtype)
             do = _randn((1, S, H, hd), gen, dtype)
-            o = fa.flash_attention(q, k, v, causal=True, window=window)
-            got = fa.flash_attention_backward(q, k, v, o, do, True, window)
+            o, lse = fa.flash_attention(q, k, v, causal=True, window=window,
+                                        return_lse=True)
+            got = fa.flash_attention_backward(q, k, v, o, lse, do, True,
+                                              window)
             want = ref.flash_attention_backward_plain(q, k, v, o, do, True,
                                                       window)
             rec = judged(case, dtype, got, want, names)
             rec["shape"] = [1, S, S, H, KV, hd]
             rec["window"] = window
+            again = fa.flash_attention_backward(q, k, v, o, lse, do, True,
+                                                window)
+            rec["bits_repeat"] = all(bits_equal(a, b)
+                                     for a, b in zip(got, again))
+            require(rec["bits_repeat"], f"{case} ({dtype}): two backward "
+                    f"launches on the same inputs differ")
+            del again
             checks.append(rec)
             if dtype == torch.float32:
                 del got, want
@@ -2319,6 +2427,15 @@ def backward_kernel_checks():
                         "the window's edge moved by one", dtype,
                         ref.flash_attention_backward_plain(
                             q, k, v, o, do, True, window + 1), want, names))
+                # query rows 64-127 given the lse of rows 128-191
+                bad = lse.clone()
+                bad[:, :, 64:128] = lse[:, :, 128:192]
+                faults.append(caught(
+                    "a 64-row query tile's lse taken from its neighbour",
+                    dtype, fa.flash_attention_backward(q, k, v, o, bad, do,
+                                                       True, window),
+                    want, names))
+                del bad
                 rec["planted_faults"] = faults
             del got, want
             # the time of the path's bf16 backward, its bound and SDPA's
@@ -2329,7 +2446,7 @@ def backward_kernel_checks():
             # dk, dv written once
             nbytes = 2 * (4 * q.numel() + 4 * k.numel())
             t = {"ms": time_ms(lambda: fa.flash_attention_backward(
-                q, k, v, o, do, True, window), 5)}
+                q, k, v, o, lse, do, True, window), 20)}
             t["bound_ms"], t["bound_by"] = bound(
                 nbytes, 10 * hd * pairs * H, BF16_OPS_PER_S)
             t["plain_ms"] = time_ms(lambda: ref.flash_attention_backward_plain(
@@ -2347,7 +2464,7 @@ def backward_kernel_checks():
                             "expanded, " + ("is_causal" if mask is None
                                             else "boolean mask"))
             timings[case] = t
-            del q, k, v, o, do, qh, kh, vh, lib, doh, keep
+            del q, k, v, o, lse, do, qh, kh, vh, lib, doh, keep
             _free()
 
     # WKV6 at rwkv6's shape: decays as the model makes them
@@ -2775,11 +2892,15 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    if FIGURES_CHILD in sys.argv[1:]:
+        return figures_child("--profile" in sys.argv[1:])
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import quantize_block as qb
     from repro_torch.kernels import rwkv_scan as rs
 
+    import faulthandler
+    faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     t_start = time.perf_counter()
     profile = "--profile" in sys.argv[1:]
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2801,26 +2922,38 @@ def main() -> int:
                 r"Used (\d+) registers", report)), default=None),
             "spill_bytes": sum(map(int, re.findall(
                 r"(\d+) bytes spill stores", report)))}
-    # the backward kernels' instances at the paths' head dims: gemma3's
-    # 256 (flash), rwkv6's 64 (WKV6), bf16
+    # the backward kernels' instances at the paths' head dims: flash bf16
+    # (wgmma) at phi3's 128 and gemma3's 256, float32 at 256; WKV6 bf16 at
+    # rwkv6's 64. The bf16 flash instances must neither spill nor have
+    # their wgmmas serialized (C7512), and must be launched with the 168
+    # registers a thread that setmaxnreg's 24 / 240 split assumes
     fa_bwd = build.BUILD_INFO.get(fa.SOURCE_BWD.name, "")
-    dq_smem, dkv_smem = ctypes.c_int(0), ctypes.c_int(0)
-    build.check(fa._bwd_lib().fa_backward_smem_bytes(
-        256, ctypes.byref(dq_smem), ctypes.byref(dkv_smem)), "smem query")
-    ptxas["backward_instances"] = {
-        "fa_bwd_dq_hd256_bf16": ptxas_report(
-            fa_bwd, "fa_bwd_dq_kernelI13__nv_bfloat16Li256E", dq_smem.value),
-        "fa_bwd_dkdv_hd256_bf16": ptxas_report(
-            fa_bwd, "fa_bwd_dkdv_kernelI13__nv_bfloat16Li256E",
-            dkv_smem.value),
-        "fa_bwd_dq_hd256_f32": ptxas_report(
-            fa_bwd, "fa_bwd_dq_kernelIfLi256E", dq_smem.value),
-        "fa_bwd_dkdv_hd256_f32": ptxas_report(
-            fa_bwd, "fa_bwd_dkdv_kernelIfLi256E", dkv_smem.value),
-        "wkv6_bwd_hd64_bf16": ptxas_report(
-            build.BUILD_INFO.get(rs.SOURCE_BWD.name, ""),
-            "wkv6_bwd_kernelI13__nv_bfloat16Li64E",
-            rs._bwd_lib().wkv6_backward_smem_bytes(64))}
+    instances = {}
+    for kind, hd, entries in (
+            ("bf16", 128, ("fa_bwd_dq_hopper", "fa_bwd_dkdv_hopper")),
+            ("bf16", 256, ("fa_bwd_dq_hopper", "fa_bwd_dkdv_hopper")),
+            ("f32", 256, ("fa_bwd_dq_kernel", "fa_bwd_dkdv_kernel"))):
+        dq_smem, dkv_smem = ctypes.c_int(0), ctypes.c_int(0)
+        build.check(fa._bwd_lib().fa_backward_smem_bytes(
+            int(kind == "bf16"), hd, ctypes.byref(dq_smem),
+            ctypes.byref(dkv_smem)), "smem query")
+        for part, entry, smem in zip(("dq", "dkdv"), entries,
+                                     (dq_smem.value, dkv_smem.value)):
+            rec = ptxas_report(fa_bwd, f"{entry}ILi{hd}E", smem)
+            instances[f"fa_bwd_{part}_hd{hd}_{kind}"] = rec
+            if kind == "bf16":
+                require(rec["registers"] == 168
+                        and rec["spill_store_bytes"] == 0
+                        and rec["spill_load_bytes"] == 0
+                        and not rec["wgmma_serialized"],
+                        f"the bf16 flash backward {part} at hd {hd} spills, "
+                        f"serializes its wgmmas or is not launched with 168 "
+                        f"registers: {rec}")
+    instances["wkv6_bwd_hd64_bf16"] = ptxas_report(
+        build.BUILD_INFO.get(rs.SOURCE_BWD.name, ""),
+        "wkv6_bwd_kernelI13__nv_bfloat16Li64E",
+        rs._bwd_lib().wkv6_backward_smem_bytes(64))
+    ptxas["backward_instances"] = instances
     emit({"phase": "setup", "card": card, "torch": torch.__version__,
           "cuda": torch.version.cuda, "tf32": False,
           "build_seconds": time.perf_counter() - t0,
@@ -2842,11 +2975,18 @@ def main() -> int:
     emit(dict(slice_out, card=card))
 
     _free()
-    mesh_out = mesh_phase()
-    emit(dict(mesh_out, card=card))
-    _free()
-    sched_out = sched_phase()
-    emit(dict(sched_out, card=card))
+    # the figures and Fig. 3 run in a child process beside the mesh and
+    # scheduler phases, after every kernel of phases 1-2 has been timed
+    started = start_figures(profile)
+    try:
+        mesh_out = mesh_phase()
+        emit(dict(mesh_out, card=card))
+        _free()
+        sched_out = sched_phase()
+        emit(dict(sched_out, card=card))
+        join_figures(started)
+    finally:
+        stop_figures(started)
 
     # the quantizer rows count their launches on each FedMM path apart:
     # the single-device rounds, the mesh runs, the two-tier runs off the
@@ -2862,11 +3002,6 @@ def main() -> int:
     if profile:
         torch.cuda.empty_cache()
         profile_rounds()
-    _free()
-
-    figures(card, profile)
-    _free()
-    fig3_phase(card, profile)
     _free()
 
     lm_phase, lm_kernels = lm_kernel_checks()

@@ -3,7 +3,8 @@
 Each source under ``csrc/`` is compiled by ``nvcc`` into a shared library
 with a plain C interface, in ``build/`` at the root of the checkout, named
 by the hash of the source and its flags (an edited source rebuilds), and
-loaded with ``ctypes``. ``build_many`` starts one ``nvcc`` per source, all
+loaded with ``ctypes``; the headers beside the sources (``*.cuh``) count
+in the hash. ``build_many`` starts one ``nvcc`` per source, all
 together, and waits for them; ptxas' report (registers, spills) of each
 build is kept in ``BUILD_INFO`` under the source's file name. Nothing here
 runs at import: the CPU tests import every module on a machine without the
@@ -42,9 +43,14 @@ def nvcc() -> str:
 
 
 def library_path(source: Path, flags) -> Path:
-    tag = hashlib.sha256(source.read_bytes()
-                         + " ".join(flags).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{source.stem}_{tag}.so"
+    """The library of ``source`` built with ``flags``, named by the hash of
+    the source, of every header (``*.cuh``) beside it, which a source may
+    include, and of the flags: an edited header rebuilds too."""
+    digest = hashlib.sha256(source.read_bytes())
+    for header in sorted(source.parent.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(flags).encode())
+    return BUILD_DIR / f"lib{source.stem}_{digest.hexdigest()[:12]}.so"
 
 
 def build_many(specs, force: bool = False) -> list:

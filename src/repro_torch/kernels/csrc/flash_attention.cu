@@ -67,7 +67,12 @@
 //     item masks are never loaded; row max over the accumulator layout and
 //     a quad shuffle; p = 2^(s c - m c) in one FFMA and one ex2; the row
 //     sum kept per thread and reduced once per item.
-//   * Epilogue: O / l from registers, bf16 stores of rows below Sq.
+//   * Epilogue: O / l from registers, bf16 stores of rows below Sq; when
+//     asked (lse not null: the train path), each row's log-sum-exp in
+//     base 2, m scale_log2 + log2(l), for the backward.
+//
+// The Hopper helpers (mbarriers, TMA, wgmma) are in hopper.cuh, which the
+// backward (flash_attention_bwd.cu) includes too.
 //
 // float32: the SIMT kernel (flash_fwd_kernel), kept for the float32
 // checks (2e-4 / 2e-5), which TF32 tensor cores could not meet (at hd 256
@@ -83,12 +88,9 @@
 // distinct banks. KV tiles that the masks empty for every row of the
 // query tile are skipped.
 
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
 #include <cmath>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -140,10 +142,6 @@ __device__ __forceinline__ void load_tile(float* dst, const T* src,
   }
 }
 
-struct Strides {
-  long long b, s, h;             // in elements; the hd axis is contiguous
-};
-
 template <int HD>
 struct Smem {
   static constexpr int kLdQ = HD + 4;           // padded rows of Q and K
@@ -165,7 +163,8 @@ constexpr int kMinBlocks = HD > 128 ? 1 : 2;
 template <typename T, int HD>
 __global__ void __launch_bounds__(kThreads, kMinBlocks<HD>)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ out, Strides qs,
+                 const T* __restrict__ v, T* __restrict__ out,
+                 float* __restrict__ lse, Strides qs,
                  Strides ks, Strides vs, Strides os, int Sq, int Sk, int group,
                  int causal, int window, float scale_log2) {
   using SM = Smem<HD>;
@@ -305,6 +304,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < 4; ++i) {
     const int qp = q0 + ty * 4 + i;
     if (qp >= Sq) continue;
+    // the row's log-sum-exp in base 2 (m is scaled here); +inf for a row
+    // that no key is kept for
+    if (lse != nullptr && tx == 0)
+      lse[(static_cast<long long>(b) * gridDim.y + h) * Sq + qp] =
+          m[i] == kNegInf ? INFINITY : m[i] + log2f(l[i]);
     const float denom = fmaxf(l[i], 1e-30f);
     T* o = out + b * os.b + static_cast<long long>(qp) * os.s + h * os.h;
 #pragma unroll
@@ -315,9 +319,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   Strides qs, Strides ks, Strides vs, Strides os, int B,
-                   int Sq, int Sk, int H, int group, int causal, int window,
-                   float scale_log2, cudaStream_t stream) {
+                   float* lse, Strides qs, Strides ks, Strides vs,
+                   Strides os, int B, int Sq, int Sk, int H, int group,
+                   int causal, int window, float scale_log2,
+                   cudaStream_t stream) {
   auto kernel = flash_fwd_kernel<T, HD>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Smem<HD>::kBytes);
@@ -325,30 +330,30 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   const dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
   kernel<<<grid, kThreads, Smem<HD>::kBytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), qs, ks, vs, os, Sq, Sk,
-      group, causal, window, scale_log2);
+      static_cast<const T*>(v), static_cast<T*>(out), lse, qs, ks, vs, os,
+      Sq, Sk, group, causal, window, scale_log2);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v,
-                        void* out, Strides qs, Strides ks, Strides vs,
-                        Strides os, int B, int Sq, int Sk, int H, int group,
-                        int causal, int window, float scale_log2,
+                        void* out, float* lse, Strides qs, Strides ks,
+                        Strides vs, Strides os, int B, int Sq, int Sk, int H,
+                        int group, int causal, int window, float scale_log2,
                         cudaStream_t stream) {
   switch (hd) {
     case 32:
-      return launch<T, 32>(q, k, v, out, qs, ks, vs, os, B, Sq, Sk, H, group,
-                           causal, window, scale_log2, stream);
+      return launch<T, 32>(q, k, v, out, lse, qs, ks, vs, os, B, Sq, Sk, H,
+                           group, causal, window, scale_log2, stream);
     case 64:
-      return launch<T, 64>(q, k, v, out, qs, ks, vs, os, B, Sq, Sk, H, group,
-                           causal, window, scale_log2, stream);
+      return launch<T, 64>(q, k, v, out, lse, qs, ks, vs, os, B, Sq, Sk, H,
+                           group, causal, window, scale_log2, stream);
     case 128:
-      return launch<T, 128>(q, k, v, out, qs, ks, vs, os, B, Sq, Sk, H, group,
-                            causal, window, scale_log2, stream);
+      return launch<T, 128>(q, k, v, out, lse, qs, ks, vs, os, B, Sq, Sk, H,
+                            group, causal, window, scale_log2, stream);
     case 256:
-      return launch<T, 256>(q, k, v, out, qs, ks, vs, os, B, Sq, Sk, H, group,
-                            causal, window, scale_log2, stream);
+      return launch<T, 256>(q, k, v, out, lse, qs, ks, vs, os, B, Sq, Sk, H,
+                            group, causal, window, scale_log2, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -370,11 +375,12 @@ constexpr int kConsumerRegs = 240;
 // (-2^100), so that scaling it is exact
 constexpr float kMasked = -1.2676506002282294e30f;
 
+// the tiles' swizzle (kBox, kBoxes, kRowBytes, kSbo) and their sizes
 template <int HD>
-struct Tile {
-  static constexpr int kBox = HD < 64 ? HD : 64;   // bf16 per swizzle row
-  static constexpr int kBoxes = HD / kBox;         // boxes per tile
-  static constexpr int kRowBytes = 2 * kBox;       // 128 or 64
+struct Tile : Swizzle<HD> {
+  using Swizzle<HD>::kBox;
+  using Swizzle<HD>::kBoxes;
+  using Swizzle<HD>::kRowBytes;
   // keys per K/V tile: 128, or 64 at hd 256, where a 64 KB Q tile and two
   // stages of 128-key K and V tiles (256 KB) would not fit in 227 KB
   static constexpr int kKeys = HD > 128 ? 64 : kRows;
@@ -384,9 +390,6 @@ struct Tile {
   static constexpr int kKVBytes = kBoxes * kKVBoxBytes;  // one K or V tile
   static constexpr int kScores = kKeys / 2;  // S accumulator floats a thread
   static constexpr int kSteps = kKeys / 16;  // k16 steps of P V per tile
-  // wgmma descriptor swizzle mode: 1 = 128-byte, 2 = 64-byte
-  static constexpr uint64_t kSwizzle = kRowBytes == 128 ? 1 : 2;
-  static constexpr uint32_t kSbo = 8 * kRowBytes;   // the next 8 rows
 };
 
 // Q, the K stages, the V stages, their barriers, and room to align the
@@ -394,209 +397,6 @@ struct Tile {
 template <int HD>
 constexpr int kSmemBytes = 1024 + Tile<HD>::kQBytes +
                            2 * kStages * Tile<HD>::kKVBytes + 128;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-// until the phase of parity `parity` has completed
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// one box of a rank-4 tensor map at (c0, c1, c2, c3) into shared memory;
-// its bytes count against the barrier's expected transaction bytes
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1, int c2,
-                                         int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::"
-      "complete_tx::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
-      "r"(c3), "r"(bar)
-      : "memory");
-}
-
-// wgmma shared-memory matrix descriptor: start address, leading and stride
-// byte offsets (16-byte units), swizzle mode
-template <int HD>
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32) | (Tile<HD>::kSwizzle << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-// until at most N committed groups are in flight
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// keeps the compiler from moving reads or writes of accumulator registers
-// across the asynchronous wgmma that owns them
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// D (64 x N, float32, registers) (+)= A (64 x 16) B (16 x N), bf16.
-// _ss: A and B K-major in shared memory; scale_d 0 overwrites D.
-// _rs: A from registers, B MN-major (transposed) in shared memory.
-__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
-                                               uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
-                                              uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16], const uint32_t (&a)[4],
-                                               uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
-      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
-                                               uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4],
-                                               uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// the 64 x 64 floats of o[64 h .. 64 h + 63]: hd columns 128 h .. 128 h +
-// 127 of an m64n256 accumulator, laid out as an m64n128 one
-template <int H>
-__device__ __forceinline__ float (&half128(float (&o)[128]))[64] {
-  return *reinterpret_cast<float(*)[64]>(&o[64 * H]);
-}
-
-// O (+)= P V for one k16 step, N = hd. At hd 256 as two n128 halves, the
-// second two boxes (128 columns) on; `lbo` is the distance between boxes
-template <int HD>
-__device__ __forceinline__ void wgmma_pv(float (&o)[HD / 2],
-                                         const uint32_t (&a)[4],
-                                         uint32_t at, uint32_t lbo) {
-  if constexpr (HD == 32) {
-    wgmma_rs_n32(o, a, smem_desc<HD>(at, lbo, Tile<HD>::kSbo));
-  } else if constexpr (HD == 64) {
-    wgmma_rs_n64(o, a, smem_desc<HD>(at, lbo, Tile<HD>::kSbo));
-  } else if constexpr (HD == 128) {
-    wgmma_rs_n128(o, a, smem_desc<HD>(at, lbo, Tile<HD>::kSbo));
-  } else {
-    wgmma_rs_n128(half128<0>(o), a, smem_desc<HD>(at, lbo, Tile<HD>::kSbo));
-    wgmma_rs_n128(half128<1>(o), a,
-                  smem_desc<HD>(at + 2 * lbo, lbo, Tile<HD>::kSbo));
-  }
-}
 
 // S = Q K^T for one warpgroup's 64 rows and a K tile of kKeys keys, both
 // K-major; the k-th 16 of hd sit in box 16 k / kBox of each
@@ -713,37 +513,6 @@ __device__ __forceinline__ void rescale(float (&o)[N], const Rows& r) {
   }
 }
 
-// P in bf16: the accumulator's 8-column blocks 2 kk and 2 kk + 1 are the
-// A-register fragment of the kk-th 16 keys
-template <int STEPS>
-__device__ __forceinline__ void pack_p(uint32_t (&pa)[STEPS][4],
-                                       const float (&sc)[8 * STEPS]) {
-#pragma unroll
-  for (int kk = 0; kk < STEPS; ++kk) {
-    pa[kk][0] = pack_bf16(sc[8 * kk], sc[8 * kk + 1]);
-    pa[kk][1] = pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
-    pa[kk][2] = pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
-    pa[kk][3] = pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
-  }
-}
-
-template <int STEPS>
-__device__ __forceinline__ void fence_pa(uint32_t (&pa)[STEPS][4]) {
-#pragma unroll
-  for (int kk = 0; kk < STEPS; ++kk)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(pa[kk][i])::"memory");
-}
-
-// named barriers 1 and 2: consumer w may issue its wgmmas after the other
-// consumer's arrival on barrier 1 + w
-__device__ __forceinline__ void bar_sync(int id) {
-  asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
-}
-__device__ __forceinline__ void bar_arrive(int id) {
-  asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
-}
-
 // One unit of work: a 128-row query tile of one (head, batch), and the
 // KV tiles (of KEYS keys) some row of it needs.
 struct Work {
@@ -776,9 +545,9 @@ __global__ void __launch_bounds__(kThreads, 1)
 fa_hopper_kernel(const __grid_constant__ CUtensorMap tm_q,
                  const __grid_constant__ CUtensorMap tm_k,
                  const __grid_constant__ CUtensorMap tm_v,
-                 __nv_bfloat16* __restrict__ out, Strides os, int Sq, int Sk,
-                 int H, int n_b, int group, int causal, int window,
-                 float scale_log2) {
+                 __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+                 Strides os, int Sq, int Sk, int H, int n_b, int group,
+                 int causal, int window, float scale_log2) {
   using T = Tile<HD>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
@@ -965,6 +734,17 @@ fa_hopper_kernel(const __grid_constant__ CUtensorMap tm_q,
         r.l0 += __shfl_xor_sync(0xffffffffu, r.l0, off);
         r.l1 += __shfl_xor_sync(0xffffffffu, r.l1, off);
       }
+      // the rows' log-sum-exp in base 2, in the backward's convention:
+      // m scale_log2 + log2(l), +inf for a row that no key is kept for
+      if (lse != nullptr && col == 0) {
+        float* lb = lse + (static_cast<long long>(u.b) * H + u.h) * Sq;
+        if (row < Sq)
+          lb[row] = r.m0 == kMasked ? INFINITY
+                                    : fmaf(r.m0, scale_log2, log2f(r.l0));
+        if (row + 8 < Sq)
+          lb[row + 8] = r.m1 == kMasked ? INFINITY
+                                        : fmaf(r.m1, scale_log2, log2f(r.l1));
+      }
       const float i0 = 1.0f / fmaxf(r.l0, 1e-30f);
       const float i1 = 1.0f / fmaxf(r.l1, 1e-30f);
       __nv_bfloat16* ob = out + u.b * os.b + u.h * os.h + col;
@@ -983,68 +763,11 @@ fa_hopper_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, from the driver through the runtime (no -lcuda)
-cudaError_t encoder(EncodeTiled* fn) {
-  static EncodeTiled cached = nullptr;
-  if (cached == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err != cudaSuccess) return err;
-    if (found != cudaDriverEntryPointSuccess || p == nullptr)
-      return cudaErrorNotSupported;
-    cached = reinterpret_cast<EncodeTiled>(p);
-  }
-  *fn = cached;
-  return cudaSuccess;
-}
-
-// A rank-4 map over (hd, S, heads, B) of a bf16 (B, S, heads, hd) tensor
-// with element strides st; boxes of `rows` rows (128 for Q, Tile<HD>::kKeys
-// for K and V) of one swizzle row each. Returns 0 or kEncodeError + the
-// CUresult.
-constexpr int kEncodeError = 10000;
-
-template <int HD>
-int make_map(CUtensorMap* map, EncodeTiled encode, const void* ptr, int S,
-             int heads, int B, Strides st, int rows) {
-  using T = Tile<HD>;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(HD),
-                              static_cast<cuuint64_t>(S),
-                              static_cast<cuuint64_t>(heads),
-                              static_cast<cuuint64_t>(B)};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(st.s) * 2,
-                                 static_cast<cuuint64_t>(st.h) * 2,
-                                 static_cast<cuuint64_t>(st.b) * 2};
-  const cuuint32_t box[4] = {T::kBox, static_cast<cuuint32_t>(rows), 1, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
-      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      T::kRowBytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
-                          : CU_TENSOR_MAP_SWIZZLE_64B,
-      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : kEncodeError + static_cast<int>(r);
-}
-
 template <int HD>
 int launch(const void* q, const void* k, const void* v, void* out,
-           Strides qs, Strides ks, Strides vs, Strides os, int B, int Sq,
-           int Sk, int H, int KV, int causal, int window, float scale_log2,
-           cudaStream_t stream) {
+           float* lse, Strides qs, Strides ks, Strides vs, Strides os, int B,
+           int Sq, int Sk, int H, int KV, int causal, int window,
+           float scale_log2, cudaStream_t stream) {
   EncodeTiled encode;
   cudaError_t err = encoder(&encode);
   if (err != cudaSuccess) return err;
@@ -1072,27 +795,27 @@ int launch(const void* q, const void* k, const void* v, void* out,
                              kSmemBytes<HD>);
   if (err != cudaSuccess) return err;
   kernel<<<grid, kThreads, kSmemBytes<HD>, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(out), os, Sq, Sk, H, B,
+      tq, tk, tv, static_cast<__nv_bfloat16*>(out), lse, os, Sq, Sk, H, B,
       H / KV, causal, window, scale_log2);
   return cudaGetLastError();
 }
 
 int dispatch_hd(int hd, const void* q, const void* k, const void* v,
-                void* out, Strides qs, Strides ks, Strides vs, Strides os,
-                int B, int Sq, int Sk, int H, int KV, int causal, int window,
-                float scale_log2, cudaStream_t stream) {
+                void* out, float* lse, Strides qs, Strides ks, Strides vs,
+                Strides os, int B, int Sq, int Sk, int H, int KV, int causal,
+                int window, float scale_log2, cudaStream_t stream) {
   switch (hd) {
     case 32:
-      return launch<32>(q, k, v, out, qs, ks, vs, os, B, Sq, Sk, H, KV,
+      return launch<32>(q, k, v, out, lse, qs, ks, vs, os, B, Sq, Sk, H, KV,
                         causal, window, scale_log2, stream);
     case 64:
-      return launch<64>(q, k, v, out, qs, ks, vs, os, B, Sq, Sk, H, KV,
+      return launch<64>(q, k, v, out, lse, qs, ks, vs, os, B, Sq, Sk, H, KV,
                         causal, window, scale_log2, stream);
     case 128:
-      return launch<128>(q, k, v, out, qs, ks, vs, os, B, Sq, Sk, H, KV,
+      return launch<128>(q, k, v, out, lse, qs, ks, vs, os, B, Sq, Sk, H, KV,
                          causal, window, scale_log2, stream);
     case 256:
-      return launch<256>(q, k, v, out, qs, ks, vs, os, B, Sq, Sk, H, KV,
+      return launch<256>(q, k, v, out, lse, qs, ks, vs, os, B, Sq, Sk, H, KV,
                          causal, window, scale_log2, stream);
     default:
       return cudaErrorInvalidValue;
@@ -1119,12 +842,16 @@ extern "C" {
 
 // q (B, Sq, H, hd), k and v (B, Sk, KV, hd), out (B, Sq, H, hd), all of one
 // type (dtype 0: float32, the SIMT kernel; 1: bfloat16, the wgmma kernel),
-// hd contiguous; *_sb, *_ss, *_sh are the batch, sequence and head strides
+// hd contiguous; lse null, or float32 (B, H, Sq) for each row's
+// log-sum-exp in base 2 (log2 of the sum over the kept keys of
+// 2^(s log2(e) / sqrt(hd)), +inf for a row with no key kept), which the
+// backward takes; *_sb, *_ss, *_sh are the batch, sequence and head strides
 // in elements (bf16: multiples of 8, addresses 16-byte aligned, as TMA
 // needs). Returns 0, the cudaError_t of the launch, or 10000 + the CUresult
 // of a failed tensor-map encoding. Nothing here synchronises or allocates.
 int fa_forward(const void* q, const void* k, const void* v, void* out,
-               int dtype, int B, int Sq, int Sk, int H, int KV, int hd,
+               float* lse, int dtype, int B, int Sq, int Sk, int H, int KV,
+               int hd,
                long long q_sb, long long q_ss, long long q_sh,
                long long k_sb, long long k_ss, long long k_sh,
                long long v_sb, long long v_ss, long long v_sh,
@@ -1144,11 +871,11 @@ int fa_forward(const void* q, const void* k, const void* v, void* out,
       static_cast<float>(kLog2e / std::sqrt(static_cast<double>(hd)));
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return static_cast<int>(dispatch_hd<float>(hd, q, k, v, out, qs, ks, vs,
-                                               os, B, Sq, Sk, H, H / KV,
+    return static_cast<int>(dispatch_hd<float>(hd, q, k, v, out, lse, qs, ks,
+                                               vs, os, B, Sq, Sk, H, H / KV,
                                                causal, window, scale_log2, s));
-  return hopper::dispatch_hd(hd, q, k, v, out, qs, ks, vs, os, B, Sq, Sk, H,
-                             KV, causal, window, scale_log2, s);
+  return hopper::dispatch_hd(hd, q, k, v, out, lse, qs, ks, vs, os, B, Sq, Sk,
+                             H, KV, causal, window, scale_log2, s);
 }
 
 // The dynamic shared memory a bfloat16 launch of fa_forward asks for, or

@@ -29,15 +29,20 @@ tensors' strides:
 Both skip KV tiles the masks empty for a whole query tile. The source
 header says what bounds each and what the design does about that.
 
+With ``return_lse=True`` the forward also returns each row's
+log-sum-exp (float32 (B, H, Sq), base 2), which both kernels write in
+their epilogue; the serving path asks for none, and no store is made.
+
 The backward, ``flash_attention_backward`` (dq, dk, dv from q, k, v, the
-output and its gradient), is two SIMT kernels of its own source,
-``csrc/flash_attention_bwd.cu``, built apart so that the forward's
-library stays what it was: one over query tiles (the rows' log-sum-exp,
-which the forward does not save, then dq), one over key tiles (dk and dv
-summed over each KV head's query heads, no atomics). Its header says
-what bounds it. ``FlashAttentionFn`` ties the two kernels together as a
-``torch.autograd.Function``, which ``kernels/ops.py`` applies to CUDA
-tensors.
+output, its log-sum-exp and its gradient), is two kernels of its own
+source, ``csrc/flash_attention_bwd.cu``, one over query tiles (D and
+dq), one over key tiles (dk and dv summed over each KV head's query
+heads, no atomics): in bf16 warp-specialised ``wgmma`` kernels fed by
+TMA, every product on the tensor cores; in float32 SIMT kernels. The
+``wgmma``, mbarrier and TMA helpers both sources use are in
+``csrc/hopper.cuh``. Its header says what bounds it. ``FlashAttentionFn``
+ties forward and backward together as a ``torch.autograd.Function``,
+which ``kernels/ops.py`` applies to CUDA tensors.
 
 ``flash_attention`` and ``flash_attention_backward`` take the plain
 versions for CPU (and shape-only ``meta``) tensors, launch their kernels
@@ -60,7 +65,8 @@ SOURCE = B.CSRC / "flash_attention.cu"
 SOURCE_BWD = B.CSRC / "flash_attention_bwd.cu"
 NVCC_FLAGS = B.BASE_FLAGS
 HEAD_DIMS = (32, 64, 128, 256)
-# fa_forward returns this plus the CUresult when a tensor map is refused
+# fa_forward and fa_backward return this plus the CUresult when a tensor
+# map is refused
 ENCODE_ERROR = 10000
 
 LAUNCHES = {"flash_attention": 0, "flash_attention_bwd": 0}
@@ -79,7 +85,7 @@ def _lib():
     if _LIB is None:
         P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         _LIB = B.load(SOURCE, NVCC_FLAGS, {
-            "fa_forward": [P, P, P, P, I, I, I, I, I, I, I,
+            "fa_forward": [P, P, P, P, P, I, I, I, I, I, I, I,
                            LL, LL, LL, LL, LL, LL, LL, LL, LL, LL, LL, LL,
                            I, I, I, P],
             "fa_smem_bytes": [I],
@@ -93,7 +99,7 @@ def _bwd_lib():
         P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         _BWD_LIB = B.load(SOURCE_BWD, NVCC_FLAGS, {
             "fa_backward": [P] * 10 + [I] * 7 + [LL] * 24 + [I, I, I, P],
-            "fa_backward_smem_bytes": [I, ctypes.POINTER(I),
+            "fa_backward_smem_bytes": [I, I, ctypes.POINTER(I),
                                        ctypes.POINTER(I)]})
     return _BWD_LIB
 
@@ -148,48 +154,82 @@ def _check_kernel_args(q, k, v) -> None:
                              f"16-byte loads along hd")
 
 
-def flash_attention(q, k, v, causal: bool = True, window: int = 0):
+def _check_rc(rc: int, what: str) -> None:
+    """Raise on a launch's non-zero return: a refused tensor map
+    (ENCODE_ERROR + the CUresult) or a cudaError_t."""
+    if rc >= ENCODE_ERROR:
+        raise RuntimeError(f"{what}: cuTensorMapEncodeTiled failed with "
+                           f"CUresult {rc - ENCODE_ERROR}")
+    B.check(rc, what)
+
+
+def flash_attention(q, k, v, causal: bool = True, window: int = 0,
+                    return_lse: bool = False):
     """q: (B, Sq, H, hd); k, v: (B, Sk, KV, hd) -> (B, Sq, H, hd) in q's
     dtype. Query i and key j sit at positions i and j: causal keeps
-    j <= i, a window keeps j > i - window."""
+    j <= i, a window keeps j > i - window. With ``return_lse``, returns
+    (out, lse): lse float32 (B, H, Sq), each row's log-sum-exp in base 2
+    (``ref.flash_attention_lse``'s convention), which the backward takes;
+    without it the kernel stores none."""
     _check_shapes(q, k, v)
     if window < 0:
         raise ValueError(f"window={window}")
     if B.route(q, "flash attention") == "plain":
-        return flash_attention_plain(q, k, v, causal=causal, window=window)
+        out = flash_attention_plain(q, k, v, causal=causal, window=window)
+        if not return_lse:
+            return out
+        return out, ref.flash_attention_lse(q, k, causal=causal,
+                                            window=window)
     _check_kernel_args(q, k, v)
     Bq, Sq, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
+    lse = (torch.empty((Bq, H, Sq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     rc = _lib().fa_forward(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(),
         int(q.dtype == torch.bfloat16), Bq, Sq, Sk, H, KV, hd,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
         int(causal), int(window), q.device.index or 0, B.stream_of(q))
-    if rc >= ENCODE_ERROR:
-        raise RuntimeError(f"flash attention: cuTensorMapEncodeTiled failed "
-                           f"with CUresult {rc - ENCODE_ERROR}")
-    B.check(rc, "flash attention")
+    _check_rc(rc, "flash attention")
     LAUNCHES["flash_attention"] += 1
-    return out
+    return out if lse is None else (out, lse)
 
 
-def flash_attention_backward(q, k, v, o, do, causal: bool = True,
+def _check_lse(lse, q) -> None:
+    want = (q.shape[0], q.shape[2], q.shape[1])
+    if not isinstance(lse, torch.Tensor):
+        raise TypeError("lse must be the forward's (B, H, Sq) float32 "
+                        "tensor")
+    if lse.dtype != torch.float32:
+        raise TypeError(f"lse is {lse.dtype}, want float32")
+    if tuple(lse.shape) != want:
+        raise ValueError(f"lse {tuple(lse.shape)} != (B, H, Sq) {want}")
+    if not lse.is_contiguous():
+        raise ValueError("lse must be contiguous")
+    if lse.device != q.device:
+        raise ValueError(f"lse is on {lse.device}, q on {q.device}")
+
+
+def flash_attention_backward(q, k, v, o, lse, do, causal: bool = True,
                              window: int = 0):
     """Gradients (dq, dk, dv) of ``flash_attention(q, k, v, causal,
-    window)``, given its output ``o`` and the output's gradient ``do``
-    (both (B, Sq, H, hd) in q's dtype). Returns them in the inputs'
-    dtypes."""
+    window)``, given its output ``o``, its rows' log-sum-exp ``lse``
+    (float32 (B, H, Sq), from ``return_lse=True``) and the output's
+    gradient ``do`` (o and do (B, Sq, H, hd) in q's dtype). Returns them
+    in the inputs' dtypes."""
     _check_shapes(q, k, v)
     if window < 0:
         raise ValueError(f"window={window}")
     for name, t in (("o", o), ("do", do)):
         if t.shape != q.shape:
             raise ValueError(f"{name} {tuple(t.shape)} != q {tuple(q.shape)}")
+    _check_lse(lse, q)
     if B.route(q, "flash attention backward") == "plain":
         return ref.flash_attention_backward_plain(q, k, v, o, do,
                                                   causal=causal,
-                                                  window=window)
+                                                  window=window, lse=lse)
     _check_kernel_args(q, k, v)
     o, do = B.aligned(o.to(q.dtype)), B.aligned(do.to(q.dtype))
     _check_kernel_args(o, do, do)
@@ -198,42 +238,45 @@ def flash_attention_backward(q, k, v, o, do, causal: bool = True,
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     dk = torch.empty(k.shape, dtype=k.dtype, device=q.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=q.device)
-    lse2 = torch.empty((Bq, H, Sq), dtype=torch.float32, device=q.device)
-    delta = torch.empty_like(lse2)
+    delta = torch.empty_like(lse)
     rc = _bwd_lib().fa_backward(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        lse2.data_ptr(), delta.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(),
         int(q.dtype == torch.bfloat16), Bq, Sq, Sk, H, KV, hd,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
         *do.stride()[:3], *dq.stride()[:3], *dk.stride()[:3],
         *dv.stride()[:3], int(causal), int(window), q.device.index or 0,
         B.stream_of(q))
-    B.check(rc, "flash attention backward")
+    _check_rc(rc, "flash attention backward")
     LAUNCHES["flash_attention_bwd"] += 1
     return dq, dk, dv
 
 
 class FlashAttentionFn(torch.autograd.Function):
-    """``flash_attention`` with its backward kernel: the forward kernel
-    saves nothing beyond q, k, v and its output; the backward launches
+    """``flash_attention`` with its backward kernels: the forward returns
+    (out, lse) and saves q, k, v, out and its rows' log-sum-exp (lse is
+    not differentiable); the backward launches
     ``flash_attention_backward``'s kernels. For CUDA tensors
-    (``kernels/ops.py``); CPU tensors take the plain version, which
-    autograd differentiates as it does any PyTorch code."""
+    (``kernels/ops.py``, which hands on ``out`` alone); on CPU tensors
+    both run their plain versions."""
 
     @staticmethod
     def forward(q, k, v, causal, window):
-        return flash_attention(q, k, v, causal=causal, window=window)
+        return flash_attention(q, k, v, causal=causal, window=window,
+                               return_lse=True)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
         q, k, v, causal, window = inputs
-        ctx.save_for_backward(q, k, v, output)
+        out, lse = output
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.mark_non_differentiable(lse)
         ctx.causal, ctx.window = causal, window
 
     @staticmethod
-    def backward(ctx, do):
-        q, k, v, o = ctx.saved_tensors
-        dq, dk, dv = flash_attention_backward(q, k, v, o, do, ctx.causal,
-                                              ctx.window)
+    def backward(ctx, do, _):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward(q, k, v, o, lse, do,
+                                              ctx.causal, ctx.window)
         return dq, dk, dv, None, None

@@ -90,7 +90,7 @@ def flash_attention(q, k, v, causal: bool = True, window: int = 0,
     stay at their defaults."""
     _tpu_tiles_at_default(q_block=q_block, kv_block=kv_block)
     if q.device.type == "cuda":
-        return fa.FlashAttentionFn.apply(q, k, v, causal, window)
+        return fa.FlashAttentionFn.apply(q, k, v, causal, window)[0]
     return fa.flash_attention(q, k, v, causal=causal, window=window)
 
 

@@ -25,6 +25,8 @@ the algorithms of their CUDA kernels (``csrc/flash_attention_bwd.cu``,
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 _M32 = 0xFFFFFFFF
@@ -202,13 +204,49 @@ def attention_keep(Sq: int, Sk: int, causal: bool, window: int, device):
     return keep
 
 
+def _masked_scores(q, k, causal, window, keep):
+    """Float32 scores q k^T / sqrt(hd) as (B, KV, G, Sq, Sk), -inf where
+    the masks (or ``keep``, an (Sq, Sk) bool mask) drop a pair."""
+    B, Sq, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    qg = q.to(torch.float32).reshape(B, Sq, KV, H // KV, hd)
+    if keep is None:
+        keep = attention_keep(Sq, Sk, causal, window, q.device)
+    s = torch.einsum("bqkgh,bskh->bkgqs", qg, k.to(torch.float32))
+    return s.mul_(hd ** -0.5).masked_fill_(~keep, float("-inf"))
+
+
+def _row_lse(s):
+    """Natural log-sum-exp over the last axis of masked scores, +inf for a
+    row with every score -inf."""
+    m = s.amax(dim=-1, keepdim=True)
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    lse = m + torch.log(torch.exp(s - m).sum(dim=-1, keepdim=True))
+    return torch.where(torch.isfinite(lse), lse,
+                       torch.full_like(lse, float("inf")))
+
+
+def flash_attention_lse(q, k, causal: bool = True, window: int = 0,
+                        keep=None):
+    """Each query row's log-sum-exp over the keys its masks keep, from the
+    materialized float32 scores, in the kernels' convention: base 2
+    (log2 of the sum of 2^(s log2(e)), s = q k / sqrt(hd)), +inf for a row
+    with no key kept. q (B, Sq, H, hd), k (B, Sk, KV, hd) -> float32
+    (B, H, Sq), which ``flash_attention(..., return_lse=True)`` returns and
+    ``flash_attention_backward`` takes."""
+    B, Sq, H, _ = q.shape
+    lse = _row_lse(_masked_scores(q, k, causal, window, keep))
+    return (lse * math.log2(math.e)).reshape(B, H, Sq)
+
+
 def flash_attention_backward_plain(q, k, v, o, do, causal: bool = True,
-                                   window: int = 0, keep=None):
+                                   window: int = 0, keep=None, lse=None):
     """Gradients (dq, dk, dv) of ``flash_attention_ref`` given its output
     ``o`` and the output's gradient ``do``, by the kernel's algorithm in
-    float32: first each query row's max and sum over the keys its mask
-    keeps (the log-sum-exp, which the forward does not save) and
-    D_i = sum do_i o_i, then P = exp(S - lse), dV = P^T dO,
+    float32: each query row's log-sum-exp over the keys its mask keeps
+    (``lse``, the forward's, (B, H, Sq) in base 2 as
+    ``flash_attention_lse`` gives it; None: computed here from the
+    scores) and D_i = sum do_i o_i, then P = exp(S - lse), dV = P^T dO,
     dS = P (dO V^T - D), dQ = dS K / sqrt(hd), dK = dS^T Q / sqrt(hd),
     dK and dV summed over the query heads of each KV head. A row with no
     key kept gets no gradient. ``keep``: an (Sq, Sk) bool mask used in
@@ -222,16 +260,12 @@ def flash_attention_backward_plain(q, k, v, o, do, causal: bool = True,
     qg = q.to(f32).reshape(B, Sq, KV, G, hd)
     dog = do.to(f32).reshape(B, Sq, KV, G, hd)
     kf, vf = k.to(f32), v.to(f32)
-    if keep is None:
-        keep = attention_keep(Sq, Sk, causal, window, q.device)
-    s = torch.einsum("bqkgh,bskh->bkgqs", qg, kf).mul_(scale)
-    s.masked_fill_(~keep, float("-inf"))
-    # pass 1: the row statistics over the kept keys
-    m = s.amax(dim=-1, keepdim=True)
-    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
-    lse = m + torch.log(torch.exp(s - m).sum(dim=-1, keepdim=True))
-    lse = torch.where(torch.isfinite(lse), lse, torch.full_like(lse,
-                                                               float("inf")))
+    s = _masked_scores(q, k, causal, window, keep)
+    # the row statistics over the kept keys, natural log
+    if lse is None:
+        lse = _row_lse(s)
+    else:
+        lse = lse.to(f32).reshape(B, KV, G, Sq, 1) * math.log(2.0)
     delta = torch.einsum("bqkgh,bqkgh->bkgq",
                          dog, o.to(f32).reshape(B, Sq, KV, G, hd))
     # pass 2: the gradients from P rebuilt with the statistics

@@ -16,6 +16,7 @@ Inputs come from a numpy seed and go through both packages.
 version on the card."""
 import dataclasses
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -27,6 +28,7 @@ from repro.models import layers as JL
 import repro_torch.configs as TCFG
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ref
 from repro_torch.models import layers as TL
 
 from _torch_parity import assert_bits_equal, np_of
@@ -223,6 +225,37 @@ def test_bf16_kernel_limit_fails_planted_faults(fault):
         _f32(want), **KERNEL_BF16_TOL)
     with pytest.raises(AssertionError):
         np.testing.assert_allclose(_f32(bad), _f32(want), **KERNEL_BF16_TOL)
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,hd,causal,window", [
+    (2, 40, 40, 4, 2, 32, True, 0),      # causal, GQA 2
+    (1, 70, 70, 4, 1, 64, True, 16),     # sliding window, GQA 4
+    (2, 24, 56, 2, 2, 32, False, 0),     # non-causal, Sq < Sk
+    (1, 48, 30, 6, 2, 16, False, 0),     # non-causal, Sq > Sk
+])
+def test_flash_backward_plain_matches_jax_grad(B, Sq, Sk, H, KV, hd, causal,
+                                               window):
+    """The port's plain backward, fed the plain log-sum-exp, against
+    jax.grad of the reference's ``blocked_attention`` (what the backward
+    kernels replace) on the same float32 inputs: both compute in float32
+    in other orders, so within rtol 1e-4 / atol 1e-5 of max |want|. Every
+    row here keeps some key (the reference gives a row with none the mean
+    of V, the port no gradient)."""
+    (jq, tq), (jk, tk), (jv, tv) = _qkv(B, Sq, Sk, H, KV, hd, seed=8)
+    jdo, tdo = _both(_normal(np.random.default_rng(9), (B, Sq, H, hd)))
+    _, vjp = jax.vjp(lambda q, k, v: JL.blocked_attention(
+        q, k, v, causal=causal, window=window), jq, jk, jv)
+    want = vjp(jdo)
+    o, lse = tfa.flash_attention(tq, tk, tv, causal=causal, window=window,
+                                 return_lse=True)
+    got = ref.flash_attention_backward_plain(tq, tk, tv, o, tdo,
+                                             causal=causal, window=window,
+                                             lse=lse)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        w = np.asarray(w)
+        np.testing.assert_allclose(np_of(g), w, rtol=1e-4,
+                                   atol=1e-5 * np.abs(w).max(),
+                                   err_msg=name)
 
 
 def test_flash_non_causal_ragged_matches_pallas():

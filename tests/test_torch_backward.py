@@ -14,12 +14,14 @@ round the same float32 result to bf16 where their sums agree, a bf16 ulp
 (2^-8 of the value) where they part.
 """
 import dataclasses
+import math
 
 import numpy as np
 import pytest
 import torch
 
 from repro_torch import configs
+from repro_torch.kernels import build
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref
@@ -117,11 +119,13 @@ def test_flash_backward_plain_row_without_keys_gets_no_gradient():
 
 def test_flash_backward_wrapper_takes_plain_on_cpu():
     q, k, v, do = _attention_inputs(1, 20, 20, 2, 1, 32, torch.float32, 7)
-    o = fa.flash_attention(q, k, v, causal=True, window=5)
+    o, lse = fa.flash_attention(q, k, v, causal=True, window=5,
+                                return_lse=True)
     before = dict(fa.LAUNCHES)
-    got = fa.flash_attention_backward(q, k, v, o, do, causal=True, window=5)
+    got = fa.flash_attention_backward(q, k, v, o, lse, do, causal=True,
+                                      window=5)
     want = ref.flash_attention_backward_plain(q, k, v, o, do, causal=True,
-                                              window=5)
+                                              window=5, lse=lse)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
     assert fa.LAUNCHES == before
@@ -132,13 +136,238 @@ def test_flash_attention_function_on_cpu_is_the_plain_gradient():
     backward, autograd's numbers."""
     q, k, v, do = _attention_inputs(2, 24, 24, 4, 2, 32, torch.float32, 8)
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
-    out = fa.FlashAttentionFn.apply(*leaves, True, 6)
+    out, _ = fa.FlashAttentionFn.apply(*leaves, True, 6)
     got = torch.autograd.grad(out, leaves, do)
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
     want = torch.autograd.grad(
         fa.flash_attention_plain(*leaves, causal=True, window=6), leaves, do)
     for g, w in zip(got, want):
         _scaled_close(g, w, F32)
+
+
+def _masked_scores_log2(q, k, causal, window):
+    """(B, H, Sq, Sk) float64 scores q k / sqrt(hd) times log2(e), -inf
+    where the masks drop a pair."""
+    B, Sq, H, hd = q.shape
+    kk = k.double().repeat_interleave(H // k.shape[2], dim=2)
+    s = torch.einsum("bqhd,bshd->bhqs", q.double(), kk) / math.sqrt(hd)
+    keep = ref.attention_keep(Sq, k.shape[1], causal, window, "cpu")
+    return s.masked_fill(~keep, float("-inf")) * math.log2(math.e)
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,causal,window", ATTENTION_CASES)
+def test_flash_lse_plain_matches_logsumexp(B, Sq, Sk, H, KV, causal,
+                                           window):
+    """``ref.flash_attention_lse``: torch.logsumexp of the masked scores
+    (float64) times log2(e), in float32 (rtol 1e-6, atol 1e-5, the
+    float32 rounding of sums of a few dozen terms); +inf exactly for a
+    row with no key kept."""
+    q, k, _, _ = _attention_inputs(B, Sq, Sk, H, KV, 32, torch.float32, 10)
+    got = ref.flash_attention_lse(q, k, causal=causal, window=window)
+    want = torch.logsumexp(_masked_scores_log2(q, k, causal, window) /
+                           math.log2(math.e), dim=-1) * math.log2(math.e)
+    assert got.shape == (B, H, Sq) and got.dtype == torch.float32
+    empty = torch.isinf(want)
+    assert torch.equal(torch.isposinf(got), empty)
+    torch.testing.assert_close(got[~empty].double(), want[~empty],
+                               rtol=1e-6, atol=1e-5)
+
+
+def test_flash_lse_plain_row_without_keys_is_inf():
+    """A window without causality past the last key keeps no key for the
+    late rows: their lse is +inf, the others' finite."""
+    q, k, _, _ = _attention_inputs(1, 12, 4, 2, 1, 8, torch.float32, 2)
+    lse = ref.flash_attention_lse(q, k, causal=False, window=3)
+    empty = ~ref.attention_keep(12, 4, False, 3, "cpu").any(dim=1)
+    assert bool(empty.any())
+    assert bool(torch.isposinf(lse[:, :, empty]).all())
+    assert bool(torch.isfinite(lse[:, :, ~empty]).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,causal,window", ATTENTION_CASES)
+def test_flash_backward_plain_with_lse_matches_own_statistics(
+        B, Sq, Sk, H, KV, causal, window, dtype):
+    """The plain backward fed ``flash_attention_lse`` against the same
+    backward computing its own statistics: F32, or BF16 (the two round
+    the same float32 gradients to bf16)."""
+    q, k, v, do = _attention_inputs(B, Sq, Sk, H, KV, 32, dtype, 11)
+    o = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
+    lse = ref.flash_attention_lse(q, k, causal=causal, window=window)
+    got = ref.flash_attention_backward_plain(q, k, v, o, do, causal=causal,
+                                             window=window, lse=lse)
+    want = ref.flash_attention_backward_plain(q, k, v, o, do, causal=causal,
+                                              window=window)
+    for g, w in zip(got, want):
+        assert g.dtype == dtype
+        _scaled_close(g, w, F32 if dtype == torch.float32 else BF16)
+
+
+def test_flash_attention_function_returns_non_differentiable_lse():
+    """``FlashAttentionFn`` on CPU tensors returns (out, lse): lse is the
+    plain one, float32 (B, H, Sq), and autograd does not track it."""
+    q, k, v, _ = _attention_inputs(2, 24, 24, 4, 2, 32, torch.float32, 12)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out, lse = fa.FlashAttentionFn.apply(*leaves, True, 6)
+    assert out.requires_grad and not lse.requires_grad
+    assert lse.shape == (2, 4, 24) and lse.dtype == torch.float32
+    assert torch.equal(lse, ref.flash_attention_lse(q, k, causal=True,
+                                                    window=6))
+    assert torch.equal(out.detach(),
+                       fa.flash_attention_plain(q, k, v, True, 6))
+
+
+def test_flash_backward_refuses_a_wrong_lse():
+    """The backward wrapper takes only the forward's (B, H, Sq) float32,
+    contiguous lse."""
+    q, k, v, do = _attention_inputs(1, 16, 16, 4, 2, 32, torch.float32, 13)
+    o, lse = fa.flash_attention(q, k, v, return_lse=True)
+    for bad, err in ((lse.transpose(1, 2), ValueError),
+                     (lse.double(), TypeError),
+                     (lse[:, :2], ValueError),
+                     (lse.repeat(1, 1, 2)[..., ::2], ValueError),
+                     (None, TypeError)):
+        with pytest.raises(err):
+            fa.flash_attention_backward(q, k, v, o, bad, do)
+
+
+# The bf16 backward kernels' tile walk (csrc/flash_attention_bwd.cu,
+# namespace hopper): 64-row tiles; the dq kernel's blocks are 128 query
+# rows, one consumer per 64; the dk/dv kernel's blocks are 64 keys. Keep
+# TILE equal to kTileRows there.
+TILE = 64
+
+
+def _dq_kernel_pairs(Sq, Sk, causal, window):
+    """(formed, unmasked): how often the dq kernel's walk forms each (query,
+    key) pair, and the pairs it forms on a tile it does not mask."""
+    formed = torch.zeros((Sq, Sk), dtype=torch.int32)
+    unmasked = torch.zeros((Sq, Sk), dtype=torch.bool)
+    for q0 in range(0, Sq, 2 * TILE):
+        k_end = min(Sk, q0 + 2 * TILE) if causal else Sk
+        k_begin = max(0, q0 - window + 1) if window else 0
+        t_begin = k_begin // TILE
+        n_tiles = max(0, -(-k_end // TILE) - t_begin)
+        for qmin in (q0, q0 + TILE):
+            for i in range(n_tiles):
+                k0 = (t_begin + i) * TILE
+                live = (qmin < Sq and (not causal or k0 <= qmin + TILE - 1)
+                        and (not window or k0 + TILE - 1 > qmin - window))
+                if not live:
+                    continue
+                edge = (k0 + TILE > Sk or (causal and k0 + TILE - 1 > qmin)
+                        or (window and k0 <= qmin + TILE - 1 - window))
+                rows, keys = slice(qmin, qmin + TILE), slice(k0, k0 + TILE)
+                formed[rows, keys] += 1
+                if not edge:
+                    unmasked[rows, keys] = True
+    return formed, unmasked
+
+
+def _dkdv_kernel_pairs(Sq, Sk, causal, window):
+    """The same for the dk/dv kernel's walk (one query head)."""
+    formed = torch.zeros((Sq, Sk), dtype=torch.int32)
+    unmasked = torch.zeros((Sq, Sk), dtype=torch.bool)
+    for k0 in range(0, Sk, TILE):
+        q_lo = k0 if causal else 0
+        q_hi = min(Sq, k0 + TILE - 1 + window) if window else Sq
+        qt_begin = q_lo // TILE
+        n_qt = -(-q_hi // TILE) - qt_begin if q_hi > q_lo else 0
+        for qt in range(qt_begin, qt_begin + n_qt):
+            q0 = qt * TILE
+            edge = (q0 + TILE > Sq or k0 + TILE > Sk
+                    or (causal and k0 + TILE - 1 > q0)
+                    or (window and k0 <= q0 + TILE - 1 - window))
+            rows, keys = slice(q0, q0 + TILE), slice(k0, k0 + TILE)
+            formed[rows, keys] += 1
+            if not edge:
+                unmasked[rows, keys] = True
+    return formed, unmasked
+
+
+@pytest.mark.parametrize("Sq,Sk,causal,window", [
+    (200, 200, True, 0), (256, 256, True, 48), (300, 300, True, 200),
+    (77, 130, False, 0), (130, 77, True, 0), (2048, 2048, True, 1024),
+    (190, 190, False, 70), (129, 129, True, 1), (64, 300, True, 0),
+])
+def test_bf16_backward_tiles_cover_every_kept_pair_once(Sq, Sk, causal,
+                                                        window):
+    """Each kernel's walk forms every kept pair exactly once and no pair
+    twice, and a tile it leaves unmasked holds only kept pairs."""
+    keep = ref.attention_keep(Sq, Sk, causal, window, "cpu")
+    for walk in (_dq_kernel_pairs, _dkdv_kernel_pairs):
+        formed, unmasked = walk(Sq, Sk, causal, window)
+        assert bool((formed[keep] == 1).all()), walk.__name__
+        assert int(formed.max()) <= 1, walk.__name__
+        assert not bool((unmasked & ~keep).any()), walk.__name__
+
+
+def _bf16_kernel_order(q, k, v, o, lse, do, causal, window):
+    """The bf16 kernels' arithmetic, emulated in float32: scores of the
+    bf16 inputs, P = 2^(s log2(e) / sqrt(hd) - lse) with the forward's
+    lse, D from the bf16 o and do; P rounded to bf16 for dV = P^T dO and
+    dS = P (dP - D) rounded to bf16 for dQ = dS K and dK = dS^T Q, each
+    product accumulated in float32; outputs rounded to bf16."""
+    B, Sq, H, hd = q.shape
+    G = H // k.shape[2]
+    qf, dof, of = (x.float().transpose(1, 2) for x in (q, do, o))
+    kf, vf = (x.float().repeat_interleave(G, dim=2).transpose(1, 2)
+              for x in (k, v))
+    c = float(np.float32(np.log2(np.e) / np.sqrt(hd)))
+    keep = ref.attention_keep(Sq, k.shape[1], causal, window, "cpu")
+    p = torch.exp2(qf @ kf.transpose(-1, -2) * c - lse[..., None])
+    p = torch.where(keep, p, torch.zeros_like(p))
+    bf = lambda x: x.to(torch.bfloat16).float()
+    dv = bf(p).transpose(-1, -2) @ dof
+    delta = (dof * of).sum(-1, keepdim=True)
+    ds = p * (dof @ vf.transpose(-1, -2) - delta)
+    dq = bf(ds) @ kf / math.sqrt(hd)
+    dk = bf(ds).transpose(-1, -2) @ qf / math.sqrt(hd)
+
+    def per_kv(x):                    # (B, H, Sk, hd) -> (B, Sk, KV, hd)
+        return x.reshape(B, H // G, G, *x.shape[2:]).sum(2).transpose(1, 2)
+    return (dq.transpose(1, 2).to(torch.bfloat16),
+            per_kv(dk).to(torch.bfloat16), per_kv(dv).to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,hd,causal,window", [
+    (1, 256, 256, 8, 2, 64, True, 0),
+    (1, 200, 200, 4, 1, 128, True, 48),
+    (2, 77, 130, 4, 4, 32, False, 0),
+    (1, 192, 192, 4, 2, 256, True, 100),
+])
+def test_bf16_kernel_arithmetic_within_limit(B, Sq, Sk, H, KV, hd, causal,
+                                             window):
+    """Rounding P and dS to bf16 before the products they feed (as the
+    kernels do) keeps each gradient within the card's bf16 limit, 2e-2 x
+    max |want|, of the plain backward on the same bf16 inputs."""
+    q, k, v, do = _attention_inputs(B, Sq, Sk, H, KV, hd, torch.bfloat16,
+                                    14)
+    o, lse = fa.flash_attention(q, k, v, causal=causal, window=window,
+                                return_lse=True)
+    got = _bf16_kernel_order(q, k, v, o, lse, do, causal, window)
+    want = ref.flash_attention_backward_plain(q, k, v, o, do, causal=causal,
+                                              window=window)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        err = float((g.float() - w.float()).abs().max())
+        assert err <= 2e-2 * float(w.float().abs().max()), name
+
+
+def test_library_path_hashes_the_headers(tmp_path):
+    """A source's library is named by the headers beside it too: an
+    edited header gives another path, and so a rebuild."""
+    src = tmp_path / "kernel.cu"
+    src.write_text('#include "shared.cuh"\n')
+    header = tmp_path / "shared.cuh"
+    header.write_text("// one\n")
+    flags = build.BASE_FLAGS
+    first = build.library_path(src, flags)
+    assert build.library_path(src, flags) == first
+    header.write_text("// two\n")
+    assert build.library_path(src, flags) != first
+    assert build.library_path(src, flags[:-1]) != build.library_path(
+        src, flags)
 
 
 def test_ops_flash_attention_on_cpu_is_differentiable():

@@ -1,7 +1,8 @@
-"""Training on the card: the backward kernels of flash attention and the
-WKV6 scan against their plain versions (every head dim, dtype and mask
-they take), their launch counts through autograd, the refusal of what
-they do not take, a smoke-preset train step and the training example.
+"""Training on the card: the forward's log-sum-exp and the backward
+kernels of flash attention and the WKV6 scan against their plain versions
+(every head dim, dtype and mask they take), the flash backward's bits run
+to run, their launch counts through autograd, the refusal of what they do
+not take, a smoke-preset train step and the training example.
 Every test here is marked ``cuda`` and skips without a CUDA device; the
 module imports no JAX, so it also runs on a machine without it:
 
@@ -63,14 +64,71 @@ def test_flash_backward_kernel_matches_plain(B, Sq, Sk, H, KV, causal,
     k = _normal((B, Sk, KV, hd), 1, dtype, dev)
     v = _normal((B, Sk, KV, hd), 2, dtype, dev)
     do = _normal((B, Sq, H, hd), 3, dtype, dev)
-    o = tfa.flash_attention(q, k, v, causal=causal, window=window)
-    got = tfa.flash_attention_backward(q, k, v, o, do, causal=causal,
+    o, lse = tfa.flash_attention(q, k, v, causal=causal, window=window,
+                                 return_lse=True)
+    got = tfa.flash_attention_backward(q, k, v, o, lse, do, causal=causal,
                                        window=window)
     torch.cuda.synchronize()
     want = ref.flash_attention_backward_plain(q, k, v, o, do, causal=causal,
                                               window=window)
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         _close(g, w, dtype, name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("hd", [32, 64, 128, 256])
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,causal,window", [
+    (2, 200, 200, 4, 2, True, 0),
+    (1, 300, 300, 4, 1, True, 200),
+    (1, 40, 90, 2, 1, False, 16),       # rows past the last key: +inf
+    (1, 130, 77, 6, 2, True, 0),
+])
+def test_flash_forward_lse_matches_plain(B, Sq, Sk, H, KV, causal, window,
+                                         hd, dtype):
+    """The forward kernels' log-sum-exp against ``ref.flash_attention_lse``
+    of the same inputs: +inf on exactly the rows with no key kept, the
+    others within 1e-4 (float32) or 1e-3 (bf16: the kernel's scores of
+    bf16 inputs are summed on the tensor cores) of |want| + 1; the output
+    is the one a forward without the lse gives, bit for bit."""
+    dev = _cuda()
+    q = _normal((B, Sq, H, hd), 0, dtype, dev)
+    k = _normal((B, Sk, KV, hd), 1, dtype, dev)
+    v = _normal((B, Sk, KV, hd), 2, dtype, dev)
+    out, lse = tfa.flash_attention(q, k, v, causal=causal, window=window,
+                                   return_lse=True)
+    torch.cuda.synchronize()
+    assert lse.shape == (B, H, Sq) and lse.dtype == torch.float32
+    want = ref.flash_attention_lse(q, k, causal=causal, window=window)
+    empty = torch.isposinf(want)
+    assert torch.equal(torch.isposinf(lse), empty)
+    tol = 1e-4 if dtype == torch.float32 else 1e-3
+    err = (lse[~empty] - want[~empty]).abs() / (want[~empty].abs() + 1)
+    assert err.numel() == 0 or float(err.max()) <= tol
+    assert torch.equal(out, tfa.flash_attention(q, k, v, causal=causal,
+                                                window=window))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("hd", [64, 256])
+def test_flash_backward_bits_repeat(hd, dtype):
+    """No atomics: two launches on the same inputs give the same bits."""
+    dev = _cuda()
+    q = _normal((1, 333, 8, hd), 0, dtype, dev)
+    k = _normal((1, 333, 2, hd), 1, dtype, dev)
+    v = _normal((1, 333, 2, hd), 2, dtype, dev)
+    do = _normal((1, 333, 8, hd), 3, dtype, dev)
+    o, lse = tfa.flash_attention(q, k, v, causal=True, window=100,
+                                 return_lse=True)
+    first = tfa.flash_attention_backward(q, k, v, o, lse, do, True, 100)
+    second = tfa.flash_attention_backward(q, k, v, o, lse, do, True, 100)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a.view(torch.int16 if a.element_size() == 2
+                                  else torch.int32),
+                           b.view(torch.int16 if b.element_size() == 2
+                                  else torch.int32))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
@@ -106,6 +164,7 @@ def test_autograd_launches_forward_and_backward_kernels():
     k = _normal((1, 128, 2, 64), 1, torch.float32, dev).requires_grad_()
     v = _normal((1, 128, 2, 64), 2, torch.float32, dev).requires_grad_()
     out = ops.flash_attention(q, k, v, causal=True, window=40)
+    assert isinstance(out, torch.Tensor) and out.shape == q.shape
     assert tfa.LAUNCHES == {"flash_attention": 1, "flash_attention_bwd": 0}
     do = torch.ones_like(out)
     grads = torch.autograd.grad(out, (q, k, v), do)
@@ -132,19 +191,30 @@ def test_autograd_launches_forward_and_backward_kernels():
 
 def test_backward_refuses_what_the_kernels_do_not_take():
     """A CUDA tensor never falls back: a head dim outside the kernels'
-    raises in the backward wrappers, as does a float16 tensor."""
+    raises in the backward wrappers, as does a float16 tensor and an lse
+    of the wrong shape, dtype, layout or device."""
     dev = _cuda()
     q = _normal((1, 16, 2, 48), 0, torch.float32, dev)
     k = _normal((1, 16, 1, 48), 1, torch.float32, dev)
+    lse = torch.zeros((1, 2, 16), dtype=torch.float32, device=dev)
     with pytest.raises(ValueError, match="hd"):
-        tfa.flash_attention_backward(q, k, k, q, q)
+        tfa.flash_attention_backward(q, k, k, q, lse, q)
+    q = _normal((1, 16, 2, 64), 0, torch.bfloat16, dev)
+    k = _normal((1, 16, 1, 64), 1, torch.bfloat16, dev)
+    for bad, err in ((lse.transpose(1, 2), ValueError),
+                     (lse.to(torch.bfloat16), TypeError),
+                     (lse[:, :1], ValueError),
+                     (lse.repeat(1, 1, 2)[..., ::2], ValueError),
+                     (lse.cpu(), ValueError)):
+        with pytest.raises(err):
+            tfa.flash_attention_backward(q, k, k, q, bad, q)
     r = _normal((1, 8, 1, 24), 0, torch.float32, dev)
     u = _normal((1, 24), 1, torch.float32, dev)
     with pytest.raises(ValueError, match="hd"):
         trs.rwkv_scan_backward(r, r, r, r, u, r)
     h = _normal((1, 16, 2, 64), 0, torch.float16, dev)
     with pytest.raises(TypeError):
-        tfa.flash_attention_backward(h, h[:, :, :1], h[:, :, :1], h, h)
+        tfa.flash_attention_backward(h, h[:, :, :1], h[:, :, :1], h, lse, h)
 
 
 def test_smoke_train_step_on_the_card():
