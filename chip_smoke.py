@@ -2306,17 +2306,24 @@ def _bwd_ratios(got, want):
             for g, w in zip(got, want)]
 
 
-def _wkv6_backward_faulty(r, k, v, w, u, dy, fault: str):
+def _wkv6_backward_faulty(r, k, v, w, u, dy, fault: str, chunk: int):
     """``ref.rwkv_scan_backward_plain`` with one planted fault: "skip G" (the
-    state's gradient not updated at the middle step) or "dw from S_t+1"
-    (dw_t taken against the state after step t). dr, dk, dv, dw, du."""
+    state's gradient not updated at the middle step), "dw from S_t+1"
+    (dw_t taken against the state after step t) or "chunk carry dropped"
+    (the state and its gradient reset to zero at the kernel's chunk
+    boundary nearest the middle, ``chunk`` steps a chunk). dr, dk, dv, dw,
+    du."""
     import torch
     f32 = torch.float32
     B, S, H, hd = r.shape
     rf, kf, vf, wf, dyf = (t.to(f32) for t in (r, k, v, w, dy))
     uf = u.to(f32)[None]
+    cut = chunk * (-(-S // chunk) // 2) if fault == "chunk carry dropped" \
+        else -1
     states = [torch.zeros((B, H, hd, hd), dtype=f32, device=r.device)]
     for t in range(S):
+        if t == cut:
+            states[-1] = torch.zeros_like(states[-1])
         states.append(wf[:, t, :, :, None] * states[-1]
                       + kf[:, t, :, :, None] * vf[:, t, :, None, :])
     G = torch.zeros_like(states[0])
@@ -2336,10 +2343,12 @@ def _wkv6_backward_faulty(r, k, v, w, u, dy, fault: str):
         du += (r_t * k_t * vdy).sum(0)
         if not (fault == "skip G" and t == S // 2):
             G = wf[:, t, :, :, None] * G + r_t[..., None] * dy_t[..., None, :]
+        if t == cut:
+            G = torch.zeros_like(G)
     return (*(g.to(r.dtype) for g in grads), du)
 
 
-def backward_kernel_checks():
+def backward_kernel_checks(profile: bool = False):
     """The two backward kernels against their plain versions at the train
     path's shapes, float32 and bf16: flash at gemma3's (B 1, S 2048, H 16,
     KV 8, hd 256; causal, and the window of 1024) and phi3's (H 40, KV 10,
@@ -2349,9 +2358,10 @@ def backward_kernel_checks():
     same bits (no atomics). In bf16 the planted faults (flash: one 64-key
     tile's share of dK dropped, the window's edge moved by one, a 64-row
     query tile's lse taken from its neighbour, run through the kernels;
-    WKV6: one step of G skipped, dw taken from S_{t+1}) must fail the
-    limit. Times, bounds and SDPA's backward beside. Returns (phase
-    record, kernel rows)."""
+    WKV6: one step of G skipped, dw taken from S_{t+1}, one chunk's carry
+    dropped) must fail the limit. Times, bounds and SDPA's backward
+    beside; with ``profile``, the WKV6 backward's three phases' device
+    times. Returns (phase record, kernel rows)."""
     import torch
     import torch.nn.functional as F
     from repro_torch import configs
@@ -2482,10 +2492,12 @@ def backward_kernel_checks():
         rec["shape"] = [1, S, H, hd]
         checks.append(rec)
         if dtype == bf16:
+            chunk = rs._bwd_lib().wkv6_backward_chunk(hd)
             rec["planted_faults"] = [
                 caught(fault, dtype, _wkv6_backward_faulty(
-                    r, kk, vv, w, u, dy, fault), want, names_w)
-                for fault in ("skip G", "dw from S_t+1")]
+                    r, kk, vv, w, u, dy, fault, chunk), want, names_w)
+                for fault in ("skip G", "dw from S_t+1",
+                              "chunk carry dropped")]
             n = r.numel()
             t = {"ms": time_ms(lambda: rs.rwkv_scan_backward(
                 r, kk, vv, w, u, dy), 5)}
@@ -2497,6 +2509,19 @@ def backward_kernel_checks():
             t["plain_ms"] = time_ms(lambda: ref.rwkv_scan_backward_plain(
                 r, kk, vv, w, u, dy), 1, 0)
             t["library_ms"] = None
+            t["chunk_steps"] = chunk
+            if profile:
+                # each phase's time and grid from the profiler's trace;
+                # phases 1 and 3 launch a block per (batch, head, chunk)
+                t["phases"] = kernel_trace(lambda: rs.rwkv_scan_backward(
+                    r, kk, vv, w, u, dy), r"wkv6_bwd_[a-z]+", 5)
+                for name in ("wkv6_bwd_summary", "wkv6_bwd_chunk"):
+                    grid = t["phases"].get(name, {}).get("grid") or [[]]
+                    require(not isinstance(grid[0], list)
+                            and grid[0] * grid[1] * grid[2]
+                            == H * -(-S // chunk),
+                            f"{name} launched the grid {grid}, not a block "
+                            f"per (batch, head, chunk): {t['phases']}")
             timings["rwkv6"] = t
         del r, kk, vv, dy, w, u, got, want
         _free()
@@ -2784,7 +2809,7 @@ def train_phase(card: str, profile: bool) -> tuple:
     the two full-width train runs, the entry point and the card against
     the CPU. Emits each part's record; returns the backward kernels' rows
     and each kernel's launches over the two train runs."""
-    rec, rows = backward_kernel_checks()
+    rec, rows = backward_kernel_checks(profile)
     emit(dict(rec, card=card))
     _free()
     launches = {}
@@ -2835,6 +2860,49 @@ def profiled(fn, top: int = 12):
             "top_kernels": [{"name": e.key[:60], "ms": dev_us(e) / 1e3,
                              "calls": e.count} for e in sorted(
                                  on_device, key=dev_us, reverse=True)[:top]]}
+
+
+def kernel_trace(fn, pattern: str, calls: int) -> dict:
+    """Run ``fn`` ``calls`` times under torch.profiler and read its trace:
+    for each kernel whose name matches ``pattern``, its mean device time
+    per launch (ms), the launches the trace holds (it may miss the first
+    call's), and the grids and blocks they were launched with."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import build
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    path = build.BUILD_DIR / f"trace_{os.getpid()}.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(path))
+    try:
+        events = json.loads(path.read_text()).get("traceEvents", [])
+    finally:
+        path.unlink(missing_ok=True)
+    out = {}
+    for ev in events:
+        m = re.search(pattern, str(ev.get("name", "")))
+        if ev.get("cat") != "kernel" or not m:
+            continue
+        rec = out.setdefault(m.group(0), {"us": 0.0, "n": 0, "grids": set(),
+                                          "blocks": set()})
+        rec["us"] += float(ev.get("dur", 0.0))
+        rec["n"] += 1
+        args = ev.get("args", {})
+        rec["grids"].add(tuple(args.get("grid", ())))
+        rec["blocks"].add(tuple(args.get("block", ())))
+    return {name: {"ms": rec["us"] / rec["n"] / 1e3,
+                   "launches_traced": rec["n"], "calls": calls,
+                   "grid": (list(*rec["grids"]) if len(rec["grids"]) == 1
+                            else sorted(map(list, rec["grids"]))),
+                   "block": (list(*rec["blocks"]) if len(rec["blocks"]) == 1
+                             else sorted(map(list, rec["blocks"])))}
+            for name, rec in out.items()}
 
 
 def profile_serving(model, params, batch):
@@ -2906,7 +2974,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
-    name = torch.cuda.get_device_name(0)
+    device_kind = torch.cuda.get_device_name(0)
     t0 = time.perf_counter()
     # one nvcc per source, started together
     sources = [qb.SOURCE, fa.SOURCE, rs.SOURCE, fa.SOURCE_BWD, rs.SOURCE_BWD]
@@ -2923,8 +2991,8 @@ def main() -> int:
             "spill_bytes": sum(map(int, re.findall(
                 r"(\d+) bytes spill stores", report)))}
     # the backward kernels' instances at the paths' head dims: flash bf16
-    # (wgmma) at phi3's 128 and gemma3's 256, float32 at 256; WKV6 bf16 at
-    # rwkv6's 64. The bf16 flash instances must neither spill nor have
+    # (wgmma) at phi3's 128 and gemma3's 256, float32 at 256; WKV6 below.
+    # The bf16 flash instances must neither spill nor have
     # their wgmmas serialized (C7512), and must be launched with the 168
     # registers a thread that setmaxnreg's 24 / 240 split assumes
     fa_bwd = build.BUILD_INFO.get(fa.SOURCE_BWD.name, "")
@@ -2949,10 +3017,24 @@ def main() -> int:
                         f"the bf16 flash backward {part} at hd {hd} spills, "
                         f"serializes its wgmmas or is not launched with 168 "
                         f"registers: {rec}")
-    instances["wkv6_bwd_hd64_bf16"] = ptxas_report(
-        build.BUILD_INFO.get(rs.SOURCE_BWD.name, ""),
-        "wkv6_bwd_kernelI13__nv_bfloat16Li64E",
-        rs._bwd_lib().wkv6_backward_smem_bytes(64))
+    # the WKV6 backward's three phases at every head dim and type the
+    # dispatch builds (the carry has no type): none may spill
+    wkv_bwd = build.BUILD_INFO.get(rs.SOURCE_BWD.name, "")
+    for hd in rs.HEAD_DIMS:
+        for phase, kernel in enumerate(("summary", "carry", "chunk"), 1):
+            kinds = ((("", ""),) if kernel == "carry" else
+                     (("_f32", "f"), ("_bf16", "13__nv_bfloat16")))
+            for kind, mangled in kinds:
+                rec = ptxas_report(
+                    wkv_bwd, f"wkv6_bwd_{kernel}I{mangled}Li{hd}E",
+                    rs._bwd_lib().wkv6_backward_phase_smem_bytes(hd, phase))
+                instances[f"wkv6_bwd_{kernel}_hd{hd}{kind}"] = rec
+    spilled = {key: rec for key, rec in instances.items()
+               if key.startswith("wkv6_bwd_") and (
+                   rec["registers"] == 0 or rec["spill_store_bytes"]
+                   or rec["spill_load_bytes"])}
+    require(not spilled, f"WKV6 backward kernels spill or are missing: "
+            f"{spilled}")
     ptxas["backward_instances"] = instances
     emit({"phase": "setup", "card": card, "torch": torch.__version__,
           "cuda": torch.version.cuda, "tf32": False,
@@ -3066,7 +3148,7 @@ def main() -> int:
     emit({"kernels": list(kernels.values())})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(card, flush=True)
-    emit({"ok": True, "device": {"platform": "gpu", "kind": name,
+    emit({"ok": True, "device": {"platform": "gpu", "kind": device_kind,
                                  "count": torch.cuda.device_count()}})
     return 0
 

@@ -314,9 +314,11 @@ def rwkv_scan_backward_plain(r, k, v, w, u, dy, dstate=None):
         dw_t[i] = sum_j G[i, j] S_t[i, j]      dr_t = S_t dy_t + u k_t (v_t . dy_t)
         du += r_t k_t (v_t . dy_t)             G <- r_t^T dy_t + diag(w_t) G
 
-    S_t is the state before step t (all of them are kept: the kernel keeps
-    one every 2048 / hd steps and recomputes the rest). Returns dr, dk, dv, dw in their
-    inputs' dtypes and du (H, hd) in u's."""
+    S_t is the state before step t (all of them are kept here; the kernel
+    keeps none within a chunk: it carries the state and G across chunks of
+    L steps and forms each chunk's terms from its start state and end
+    gradient). Returns dr, dk, dv, dw in their inputs' dtypes and du
+    (H, hd) in u's."""
     f32 = torch.float32
     B, S, H, hd = r.shape
     rf, kf, vf, wf, dyf = (t.to(f32) for t in (r, k, v, w, dy))

@@ -27,10 +27,15 @@ hold two blocks (``PERF.md``).
 The backward, ``rwkv_scan_backward`` (dr, dk, dv, dw, du from the inputs,
 dy and the final state's gradient), is a kernel of its own source,
 ``csrc/rwkv_scan_bwd.cu``, built apart so that the forward's library
-stays what it was: one block per (batch, head) walks the recurrence of
-the state's gradient back in time, from the states it keeps at every
-chunk start and recomputes within a chunk (never dividing by the
-decay). ``WKV6Fn`` ties the two kernels together as a
+stays what it was. It cuts the sequence into chunks of L steps (32 at
+hd 64; ``wkv6_backward_chunk``) and runs three phases in one call: each
+chunk's own state, own gradient and decay product from zero, a block per
+(batch, head, chunk); the carry of the state forward and of its gradient
+backward over the chunks, a thread per two state elements; then each
+chunk's gradients from its start state and end gradient, a block per
+(batch, head, chunk). No state is recovered by dividing by a decay. du
+comes back as partials per (batch, head, chunk), which the wrapper sums.
+``WKV6Fn`` ties the two kernels together as a
 ``torch.autograd.Function`` over the float32 ``u``, which
 ``kernels/ops.py`` applies to CUDA tensors (the cast of ``u`` stays
 outside it, so autograd carries du back to u's dtype).
@@ -72,7 +77,9 @@ SIGNATURES = {"wkv6_forward": [_P] * 7 + [_I] * 6 + [_P],
 BWD_SIGNATURES = {
     "wkv6_backward": [_P] * 13 + [_I] * 6 + [_P],
     "wkv6_backward_scratch": [_I] * 4 + [ctypes.POINTER(ctypes.c_longlong)],
-    "wkv6_backward_smem_bytes": [_I]}
+    "wkv6_backward_chunk": [_I],
+    "wkv6_backward_smem_bytes": [_I],
+    "wkv6_backward_phase_smem_bytes": [_I, _I]}
 
 
 def _lib():
@@ -148,11 +155,13 @@ def as_u32(u, r):
     return u.to(device=r.device, dtype=torch.float32).contiguous()
 
 
-def rwkv_scan_backward(r, k, v, w, u, dy, dstate=None):
+def rwkv_scan_backward(r, k, v, w, u, dy, dstate=None, *, lib=None):
     """Gradients (dr, dk, dv, dw, du) of ``rwkv_scan(r, k, v, w, u)`` given
     the gradient ``dy`` of y (r's shape) and ``dstate`` of the final state
     ((B, H, hd, hd) float32, or None for zero). dr, dk, dv, dw come in
-    their inputs' dtypes, du (H, hd) in u's."""
+    their inputs' dtypes, du (H, hd) in u's. ``lib``: a library of the
+    backward's C API to launch instead of ``csrc/rwkv_scan_bwd.cu``'s (a
+    build of an edited copy, to compare versions)."""
     _check_shapes(r, k, v, w, u)
     if dy.shape != r.shape:
         raise ValueError(f"dy {tuple(dy.shape)} != r {tuple(r.shape)}")
@@ -167,14 +176,16 @@ def rwkv_scan_backward(r, k, v, w, u, dy, dstate=None):
                              f"{(Bn, H, hd, hd)}")
         dstate = B.aligned(dstate.to(device=r.device, dtype=torch.float32))
     u32 = as_u32(u, r)
-    lib = _bwd_lib()
+    lib = lib or _bwd_lib()
     floats = ctypes.c_longlong(0)
     B.check(lib.wkv6_backward_scratch(Bn, S, H, hd, ctypes.byref(floats)),
             "RWKV scan backward scratch")
     scratch = torch.empty((floats.value,), dtype=torch.float32,
                           device=r.device)
     grads = [torch.empty_like(r) for _ in range(4)]
-    du_part = torch.empty((Bn, H, hd), dtype=torch.float32, device=r.device)
+    n_chunks = -(-S // lib.wkv6_backward_chunk(hd))
+    du_part = torch.empty((Bn, H, n_chunks, hd), dtype=torch.float32,
+                          device=r.device)
     rc = lib.wkv6_backward(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
         u32.data_ptr(), dy.data_ptr(),
@@ -185,7 +196,7 @@ def rwkv_scan_backward(r, k, v, w, u, dy, dstate=None):
     B.check(rc, "RWKV scan backward")
     LAUNCHES["rwkv_scan_bwd"] += 1
     dr, dk, dv, dw = grads
-    return dr, dk, dv, dw, du_part.sum(0).to(u.dtype)
+    return dr, dk, dv, dw, du_part.sum((0, 2)).to(u.dtype)
 
 
 class WKV6Fn(torch.autograd.Function):

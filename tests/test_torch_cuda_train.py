@@ -136,13 +136,26 @@ def test_flash_backward_bits_repeat(hd, dtype):
 @pytest.mark.parametrize("hd", [16, 32, 64, 128])
 @pytest.mark.parametrize("with_dstate", [False, True],
                          ids=["no-dstate", "dstate"])
-def test_wkv6_backward_kernel_matches_plain(hd, dtype, with_dstate):
-    """Several chunks of 2048 / hd steps, and a ragged last one."""
+@pytest.mark.parametrize("case", ["ragged", "one-step", "below-chunk", "long",
+                                  "decay-0-and-1"])
+def test_wkv6_backward_kernel_matches_plain(hd, dtype, with_dstate, case):
+    """The kernel's chunks are 16 or 32 steps (``wkv6_backward_chunk``):
+    ``ragged``, several chunks and a ragged last one; ``one-step``, S = 1;
+    ``below-chunk``, S = 13, one chunk short of its end; ``long``, S = 8192
+    (hundreds of chunks carried); ``decay-0-and-1``, the ragged shape with
+    w = 0 exactly at step 3 and w = 1 over steps 40-109, across chunk
+    boundaries."""
     dev = _cuda()
-    B, S, H = 2, 4096 // hd + 37, 3
+    B, S, H = {"ragged": (2, 4096 // hd + 37, 3), "one-step": (2, 1, 3),
+               "below-chunk": (2, 13, 3), "long": (1, 8192, 2),
+               "decay-0-and-1": (2, 4096 // hd + 37, 3)}[case]
     r, k, v = (_normal((B, S, H, hd), i, dtype, dev) for i in range(3))
     w = torch.exp(-torch.exp(_normal((B, S, H, hd), 3, torch.float32, dev)
-                             - 2.0)).to(dtype)
+                             - 2.0))
+    if case == "decay-0-and-1":
+        w[:, 3] = 0.0
+        w[:, 40:110] = 1.0
+    w = w.to(dtype)
     u = 0.3 * _normal((H, hd), 4, torch.float32, dev)
     dy = _normal((B, S, H, hd), 5, dtype, dev)
     dstate = _normal((B, H, hd, hd), 6, torch.float32, dev) \
