@@ -31,12 +31,16 @@ points at full width and checks what comes out:
    int8 KV cache), of rwkv6-3b (32 layers, bf16, the WKV6 kernel in
    every prefill layer) and of gemma3-12b (48 layers, hd 256, bf16: the
    flash kernel in every prefill layer, 40 of them with the local window
-   of 1024 and a ring cache, 8 global; then the int8 KV cache), random
-   weights from a seed, batch 4, 2048-token prompts; plus a
-   decode-consistency check of each on a full-width two-layer float32
-   build (gemma3's one local and one global layer, at prompts of 2048,
-   1500 and 600 tokens); and before them the default serve command
-   (``--preset smoke``, reduced float32 configs) of each arch;
+   of 1024 and a ring cache, 8 global; then the int8 KV cache) and of
+   qwen3-moe-235b-a22b (8 of its 94 layers, bf16: flash at a GQA group
+   of 16 in every prefill layer, then the mixture of experts, 128
+   experts, top 8; then the int8 KV cache), random weights from a seed,
+   batch 4, 2048-token prompts; plus a decode-consistency check of each
+   on a full-width two-layer float32 build (gemma3's one local and one
+   global layer, at prompts of 2048, 1500 and 600 tokens; qwen3's with
+   a capacity that drops nothing); and before them the default serve
+   command (``--preset smoke``, reduced float32 configs) of each arch,
+   llama4-maverick-400b-a17b's too;
 3. the paper's figures (``repro_torch.benchmarks``): Fig. 1 (FedMM against
    naive parameter-space aggregation) and Fig. 2 (control variates) of
    federated dictionary learning at the paper's sizes on its three data
@@ -55,7 +59,8 @@ points at full width and checks what comes out:
 4. training (the ``train`` phase, after serving): the backward kernels of
    flash attention (fed the forward's log-sum-exp, the same bits on a
    second launch) and WKV6 against their plain versions, FedMM training
-   of gemma3-12b (6 layers) and rwkv6-3b (8 layers) at full width through
+   of gemma3-12b (6 layers), rwkv6-3b (8 layers) and qwen3-moe-235b-a22b
+   (1 layer) at full width through
    ``repro_torch.fed.trainer.make_train_step`` (the forward and backward
    kernels in every layer, ``qb_encode`` on every leaf of at least 65,536
    elements), ``repro_torch.launch.train`` at the ``100m`` and ``smoke``
@@ -108,6 +113,9 @@ SEED = 0
 
 # the serving path: batch, prompt and new tokens of every serve phase
 SERVE_BATCH, PROMPT_LEN, NEW_TOKENS, NEW_TOKENS_INT8 = 4, 2048, 32, 8
+# qwen3-moe-235b-a22b served at full width, 8 of its 94 layers: 19.9 B
+# layer parameters and 1.25 B of embedding and head, 42 GB in bf16
+SERVE_QWEN3_LAYERS = 8
 CONSISTENCY_TOL = 5e-3            # tests/test_models_smoke.py, float32
 # kernel against plain version, |got - want| <= atol + rtol |want|. Both
 # sides compute in float32 and differ only in the order of their sums, so
@@ -136,6 +144,7 @@ REPLACES = {
     "encode_seeded": "src/repro/kernels/quantize_block.py:247",
     # groups below 128: the reference encodes them in jnp, not in :247
     "encode_seeded_small": "src/repro/core/compression.py:698",
+    "encode_seeded_small_g16": "src/repro/core/compression.py:698",
     "decode_reduce": "src/repro/kernels/quantize_block.py:318",
     "flash_attention": "src/repro/kernels/flash_attention.py:93",
     "rwkv_scan": "src/repro/kernels/rwkv_scan.py:68",
@@ -290,6 +299,9 @@ def bits_equal(a, b) -> bool:
 # ---------------------------------------------------------------------------
 
 SMALL_GROUP_SHAPE, SMALL_GROUP = (262144, 3840), 8
+# qwen3-moe's expert leaves w_gate and w_in, (128, 4096, 1536), as the
+# encode takes them: rows of 1536, shard-safe group 16
+EXPERT_LEAF_SHAPE, EXPERT_GROUP = (128 * 4096, 1536), 16
 
 
 def kernel_checks(qb):
@@ -379,6 +391,30 @@ def kernel_checks(qb):
     results["encode_seeded_small"].update(shape=list(SMALL_GROUP_SHAPE),
                                           group=ge)
     del xe
+    torch.cuda.empty_cache()
+
+    # the same kernel at qwen3-moe's expert leaves, group 16: its own row,
+    # whose launches are the train path's group-16 encodes
+    xq = torch.randn(EXPERT_LEAF_SHAPE, generator=gen, device=device)
+    xq[5, :EXPERT_GROUP] = 0.0                   # one all-zero group
+    gq, nq = EXPERT_GROUP, xq.numel()
+    kern = lambda: qb.quantize_encode_grouped(xq, bits=BITS, group=gq,
+                                              seed=seed)
+    plain = lambda: qb.quantize_encode_grouped_plain(xq, bits=BITS,
+                                                     group=gq, seed=seed)
+    got, want = kern(), plain()
+    require(all(bits_equal(a, b) for a, b in zip(got, want)),
+            "encode_seeded_small at group 16: kernel differs from its plain "
+            "version")
+    err = max(max_abs_err(a, b) for a, b in zip(got, want))
+    del got, want
+    name = f"encode_seeded_small_g{gq}"
+    record(name, kern, plain, err, 5 * nq + 4 * nq // gq,
+           (OPS_ROUND + OPS_HASH) * nq, iters=10)
+    results[name].update(shape=list(EXPERT_LEAF_SHAPE), group=gq,
+                         pct_of_bound=100 * results[name]["bound_ms"]
+                         / results[name]["ms"])
+    del xq
     torch.cuda.empty_cache()
 
     # the reduce over a C-client stack of payloads encoded by the kernel
@@ -1637,16 +1673,52 @@ def gemma3_attention_checks(gen, checks: list) -> dict:
     return records
 
 
+def causal_attention_times(q, k, v, pairs: int, check: dict) -> dict:
+    """The bf16 flash kernel on causal q, k, v: its time against its bound
+    (``pairs`` causal (q, k) pairs), the plain version's time, and SDPA's
+    (the library yardstick: one PyTorch call on the same inputs, K/V
+    expanded to the query heads outside the timed call) with the backend
+    it ran, after holding SDPA's output against the kernel's at BF16_TOL
+    (the worst ratio goes into ``check``)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+
+    B, _, H, hd = q.shape
+    group = H // k.shape[2]
+    flops = 4 * hd * pairs * B * H
+    out = {"flop": flops}
+    out["bound_ms"], out["bound_by"] = bound(
+        2 * (2 * q.numel() + k.numel() + v.numel()), flops, BF16_OPS_PER_S)
+    out["ms"] = time_ms(lambda: fa.flash_attention(q, k, v), 10)
+    out["pct_of_bound"] = 100 * out["bound_ms"] / out["ms"]
+    out["tflops"] = flops / (out["ms"] * 1e-3) / 1e12
+    out["plain_ms"] = time_ms(lambda: fa.flash_attention_plain(q, k, v), 2,
+                              1)
+    qh = q.transpose(1, 2).contiguous()
+    kh = k.repeat_interleave(group, dim=2).transpose(1, 2).contiguous()
+    vh = v.repeat_interleave(group, dim=2).transpose(1, 2).contiguous()
+    lib = lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)
+    ratio = worst_ratio(lib().transpose(1, 2), fa.flash_attention(q, k, v),
+                        BF16_TOL)
+    require(ratio <= 1.0, f"flash attention (group {group}) disagrees with "
+            f"scaled_dot_product_attention: {ratio} x the tolerance")
+    check["sdpa_worst_ratio"] = ratio
+    out["library_ms"] = time_ms(lib, 10)
+    out["library_backend"] = sdpa_backend(lib)
+    return out
+
+
 def lm_kernel_checks():
     """Flash attention at phi3's prefill shape (bf16, B 4, S 2048, H 40,
-    KV 10, hd 128, causal), a sliding-window and a ragged non-causal
-    shape, and gemma3-12b's hd-256 shapes (``gemma3_attention_checks``);
+    KV 10, hd 128, causal) and qwen3-moe's (H 64 over KV 4, a GQA group
+    of 16), each timed by ``causal_attention_times``, a sliding-window and
+    a ragged non-causal shape, and gemma3-12b's hd-256 shapes
+    (``gemma3_attention_checks``);
     the WKV6 scan at rwkv6's prefill shape (bf16, B 4, S 2048, H 40,
     hd 64). Each against its plain version, with its time, bound and, for
     attention, the library call's time. Returns (phase record, kernel
     records)."""
     import torch
-    import torch.nn.functional as F
     from repro_torch import configs
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import rwkv_scan as rs
@@ -1683,33 +1755,24 @@ def lm_kernel_checks():
     del want
     pos = torch.arange(S, device="cuda")
     pairs = int((pos[None, :] <= pos[:, None]).sum())      # valid (q, k)
-    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
     flash = {"name": "flash_attention", "route": "cuda",
              "source": LM_SOURCES["flash_attention"],
-             "replaces": REPLACES["flash_attention"], "max_abs_err": err}
-    flash["bound_ms"], flash["bound_by"] = bound(
-        nbytes, 4 * hd * pairs * B * H, BF16_OPS_PER_S)
-    flash["ms"] = time_ms(lambda: fa.flash_attention(q, k, v), 10)
+             "replaces": REPLACES["flash_attention"], "max_abs_err": err,
+             **causal_attention_times(q, k, v, pairs, checks[-1])}
     flash["ms_with_lse"] = time_ms(lambda: fa.flash_attention(
         q, k, v, return_lse=True), 10)
-    flash["tflops"] = 4 * hd * pairs * B * H / (flash["ms"] * 1e-3) / 1e12
-    flash["plain_ms"] = time_ms(lambda: fa.flash_attention_plain(q, k, v),
-                                2, 1)
-    # the library yardstick: one PyTorch call on the same inputs, K/V
-    # expanded to the query heads (outside the timed call)
-    qh = q.transpose(1, 2).contiguous()
-    kh = k.repeat_interleave(H // KV, dim=2).transpose(1, 2).contiguous()
-    vh = v.repeat_interleave(H // KV, dim=2).transpose(1, 2).contiguous()
-    lib = F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)
-    ratio = worst_ratio(lib.transpose(1, 2), fa.flash_attention(q, k, v),
-                        BF16_TOL)
-    require(ratio <= 1.0, f"flash attention disagrees with "
-            f"scaled_dot_product_attention: {ratio} x the tolerance")
-    checks[-1]["sdpa_worst_ratio"] = ratio
-    flash["library_ms"] = time_ms(
-        lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=True),
-        10)
-    del q, k, v, qh, kh, vh, lib
+    del q, k, v
+    # qwen3-moe's prefill: 64 query heads over 4 KV heads, a group of 16
+    qwen3 = configs.get("qwen3-moe-235b-a22b")
+    H, KV, hd = qwen3.n_heads, qwen3.n_kv_heads, qwen3.hd
+    q, k, v, want, err = attention_case("qwen3 prefill", B, S, S, H, KV, hd,
+                                        True, 0, bf16)
+    del want
+    flash["qwen3_group16"] = {
+        "shape": [B, S, S, H, KV, hd], "group": H // KV, "max_abs_err": err,
+        **causal_attention_times(q, k, v, pairs, checks[-1])}
+    del q, k, v
+    _free()
     attention_case("sliding window", 2, 1024, 1024, 16, 4, 64, True, 256,
                    bf16)
     attention_case("non-causal ragged", 2, 333, 1000, 8, 4, 32, False, 0,
@@ -1845,8 +1908,9 @@ def _check_served(cfg, toks, info, new_tokens) -> None:
 def serve_smoke_presets():
     """The port's default serve command, ``python -m
     repro_torch.launch.serve --arch A`` (``--preset smoke``: the reduced
-    float32 config, two layers; rwkv6's head dim 16, phi3's and gemma3's
-    32, gemma3's layers [swa_mlp, attn_mlp] with a window of 16), for
+    float32 config, two layers; rwkv6's head dim 16, phi3's, gemma3's and
+    the MoE archs' 32, gemma3's layers [swa_mlp, attn_mlp] with a window
+    of 16, qwen3-moe's and llama4's 4 experts, top 2 and top 1), for
     every ported arch, through ``launch/serve.py:main`` on the card: ids
     in [0, vocab), finite logits, one kernel launch per layer in the one
     prefill (counts set to 0 just before, read just after)."""
@@ -1860,6 +1924,10 @@ def serve_smoke_presets():
                                "flash_attention"),
                               ("rwkv6-3b", rs.LAUNCHES, "rwkv_scan"),
                               ("gemma3-12b", fa.LAUNCHES,
+                               "flash_attention"),
+                              ("qwen3-moe-235b-a22b", fa.LAUNCHES,
+                               "flash_attention"),
+                              ("llama4-maverick-400b-a17b", fa.LAUNCHES,
                                "flash_attention")):
         cfg = configs.get(aid).reduced()
         counter[key] = 0
@@ -1880,7 +1948,9 @@ def serve_smoke_presets():
 
 def decode_consistency(cfg, recurrent: bool, prompts=(PROMPT_LEN,)):
     """A full-width two-layer float32 build of ``cfg`` (gemma3's with
-    ``global_every=2``: one local layer, window 1024, and one global):
+    ``global_every=2``: one local layer, window 1024, and one global; an
+    MoE's with the no-drop capacity factor E, as the reference's check:
+    dropping by capacity is not causal):
     decode(prefill(x[:S]), x[S], pos=S) against prefill(x[:S+1])'s last
     logits at each S of ``prompts``, within CONSISTENCY_TOL
     (tests/test_models_smoke.py's checks; the attention cache is
@@ -1892,12 +1962,16 @@ def decode_consistency(cfg, recurrent: bool, prompts=(PROMPT_LEN,)):
 
     cfg2 = dataclasses.replace(cfg, n_layers=2, dtype="float32",
                                global_every=min(cfg.global_every, 2))
+    if cfg.n_experts:
+        cfg2 = dataclasses.replace(cfg2,
+                                   capacity_factor=float(cfg.n_experts))
     model = build_model(cfg2, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
     params = model.init(gen)
     toks = make_batch(gen, cfg2, SERVE_BATCH, max(prompts) + 1)["tokens"]
     out = {"layers": T.layer_pattern(cfg2), "dtype": "float32",
-           "tol": CONSISTENCY_TOL, "checks": []}
+           "capacity_factor": cfg2.capacity_factor, "tol": CONSISTENCY_TOL,
+           "checks": []}
     for S in prompts:
         cache_len = None if recurrent else S + 8
         _, cache = model.prefill(params, {"tokens": toks[:, :S]},
@@ -1934,22 +2008,28 @@ def cache_bytes_by_kind(cfg, batch: int, seq_len: int) -> dict:
 
 
 def serve_model(aid: str, launches: dict, per_prefill_name: str,
-                int8_tokens: int, profile: bool, prompts=(PROMPT_LEN,)):
-    """The serving path for one architecture at full width and depth:
-    random bf16 weights on the card from SEED (one matrix at a time), a
-    warm-up request, then batch SERVE_BATCH of PROMPT_LEN-token prompts
-    with NEW_TOKENS greedy tokens, and (``int8_tokens`` > 0) the same
-    batch with the int8 KV cache; the cache's bytes by layer kind; then
-    ``decode_consistency`` at ``prompts``. ``launches`` is the kernel's
-    counter: set to 0 just before the measured requests, read just
-    after."""
+                int8_tokens: int, profile: bool, prompts=(PROMPT_LEN,),
+                layers: int = 0):
+    """The serving path for one architecture at full width and depth (or
+    its first ``layers`` layers): random bf16 weights on the card from
+    SEED (one matrix at a time), a warm-up request, then batch
+    SERVE_BATCH of PROMPT_LEN-token prompts with NEW_TOKENS greedy
+    tokens, and (``int8_tokens`` > 0) the same batch with the int8 KV
+    cache; the cache's bytes by layer kind; peak memory under 80 GB; for
+    an MoE, the share of (token, choice) pairs its capacity dropped in
+    the measured prefill; then ``decode_consistency`` at ``prompts``.
+    ``launches`` is the kernel's counter: set to 0 just before the
+    measured requests, read just after."""
     import dataclasses
     import torch
     from repro_torch import configs
     from repro_torch.launch.serve import serve
+    from repro_torch.models import moe
     from repro_torch.models.model import build_model, make_batch
 
     cfg = configs.get(aid)
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
     model = build_model(cfg, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     torch.cuda.synchronize()
@@ -1957,7 +2037,7 @@ def serve_model(aid: str, launches: dict, per_prefill_name: str,
     params = model.init(gen)
     torch.cuda.synchronize()
     out = {"phase": f"serve_{aid.split('-')[0]}", "arch": aid,
-           "init_seconds": time.perf_counter() - t0,
+           "layers": cfg.n_layers, "init_seconds": time.perf_counter() - t0,
            "parameters": sum(p.numel() for p in params.parameters()),
            "parameter_bytes": sum(p.numel() * p.element_size()
                                   for p in params.parameters()),
@@ -1967,15 +2047,31 @@ def serve_model(aid: str, launches: dict, per_prefill_name: str,
     serve(model, params, batch, 2)
 
     launches[per_prefill_name] = 0
+    moe.reset_dispatch()
     torch.cuda.reset_peak_memory_stats()
     toks, info = serve(model, params, batch, NEW_TOKENS)
+    peak = torch.cuda.max_memory_allocated()
     out["bf16_kv"] = dict(info, new_tokens=NEW_TOKENS,
                           launches=launches[per_prefill_name],
-                          peak_bytes=torch.cuda.max_memory_allocated(),
+                          peak_bytes=peak,
                           cache_bytes=cache_bytes_by_kind(
                               cfg, SERVE_BATCH, PROMPT_LEN + NEW_TOKENS),
                           ids_seq0=toks[0].tolist())
     _check_served(cfg, toks, info, NEW_TOKENS)
+    require(peak < 80e9, f"{aid}: peak {peak} bytes")
+    if cfg.n_experts:
+        # a decode step's group is one token, which never drops: every
+        # dropped pair is the prefill's
+        prefill_pairs = SERVE_BATCH * PROMPT_LEN * cfg.top_k * cfg.n_layers
+        decode_pairs = (SERVE_BATCH * cfg.top_k * cfg.n_layers
+                        * (NEW_TOKENS - 1))
+        require(moe.DISPATCH["pairs"] == prefill_pairs + decode_pairs,
+                f"{aid}: {moe.DISPATCH} routed pairs, want {prefill_pairs} "
+                f"+ {decode_pairs}")
+        dropped = moe.DISPATCH["pairs"] - moe.DISPATCH["kept"]
+        out["bf16_kv"].update(moe_pairs_prefill=prefill_pairs,
+                              moe_pairs_dropped=dropped,
+                              moe_dropped_share=dropped / prefill_pairs)
     require(launches[per_prefill_name] == cfg.n_layers,
             f"{per_prefill_name}: {launches[per_prefill_name]} launches in "
             f"one prefill, want one per layer ({cfg.n_layers})")
@@ -2287,10 +2383,12 @@ TRAIN_RUNS = {
     # name: (arch, layers kept, clients, variates on)
     "train_gemma3": ("gemma3-12b", 6, 2, False),
     "train_rwkv6": ("rwkv6-3b", 8, 4, True),
+    "train_qwen3": ("qwen3-moe-235b-a22b", 1, 2, False),
 }
 # the entry point's runs (python -m repro_torch.launch.train)
 ENTRY_STEPS = 20
-ENTRY_ARCHS = ("phi3-medium-14b", "gemma3-12b", "rwkv6-3b")
+ENTRY_ARCHS = ("phi3-medium-14b", "gemma3-12b", "rwkv6-3b",
+               "qwen3-moe-235b-a22b")
 CARD_VS_CPU_ROUNDS, CARD_VS_CPU_LOSS_RTOL = 3, 1e-4
 REPLACES_BWD = {
     # the reference differentiates jnp code: what the backward kernels
@@ -2351,8 +2449,9 @@ def _wkv6_backward_faulty(r, k, v, w, u, dy, fault: str, chunk: int):
 def backward_kernel_checks(profile: bool = False):
     """The two backward kernels against their plain versions at the train
     path's shapes, float32 and bf16: flash at gemma3's (B 1, S 2048, H 16,
-    KV 8, hd 256; causal, and the window of 1024) and phi3's (H 40, KV 10,
-    hd 128, causal), fed the forward's log-sum-exp and held against the
+    KV 8, hd 256; causal, and the window of 1024), phi3's (H 40, KV 10,
+    hd 128, causal) and qwen3-moe's (H 64, KV 4: a GQA group of 16, hd
+    128, causal), fed the forward's log-sum-exp and held against the
     plain backward that computes its own; WKV6 at rwkv6's (B 1, S 2048,
     H 40, hd 64). Two flash launches on the same inputs must give the
     same bits (no atomics). In bf16 the planted faults (flash: one 64-key
@@ -2371,9 +2470,8 @@ def backward_kernel_checks(profile: bool = False):
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
     bf16 = torch.bfloat16
-    gemma, phi3, rwkv = (configs.get(a) for a in ("gemma3-12b",
-                                                  "phi3-medium-14b",
-                                                  "rwkv6-3b"))
+    gemma, phi3, rwkv, qwen3 = (configs.get(a) for a in (
+        "gemma3-12b", "phi3-medium-14b", "rwkv6-3b", "qwen3-moe-235b-a22b"))
     S = TRAIN_SEQ
     checks, timings = [], {}
 
@@ -2399,7 +2497,7 @@ def backward_kernel_checks(profile: bool = False):
     names = ("dq", "dk", "dv")
     for case, cfg, window in (("gemma3 global", gemma, 0),
                               ("gemma3 local", gemma, gemma.window),
-                              ("phi3", phi3, 0)):
+                              ("phi3", phi3, 0), ("qwen3", qwen3, 0)):
         H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
         for dtype in (torch.float32, bf16):
             q = _randn((1, S, H, hd), gen, dtype)
@@ -2536,7 +2634,7 @@ def backward_kernel_checks(profile: bool = False):
                  "ms", "bound_ms", "bound_by", "plain_ms", "library_ms")},
              "at": "gemma3 global, bf16, B 1, S 2048, H 16, KV 8, hd 256",
              "other_shapes": {k: v for k, v in timings.items()
-                              if k in ("gemma3 local", "phi3")}}
+                              if k in ("gemma3 local", "phi3", "qwen3")}}
     scan = {"name": "rwkv_scan_bwd", "route": "cuda",
             "source": LM_SOURCES["rwkv_scan_bwd"],
             "replaces": REPLACES_BWD["rwkv_scan_bwd"],
@@ -2556,7 +2654,8 @@ def _launch_counters():
     from repro_torch.kernels import quantize_block as qb
     from repro_torch.kernels import rwkv_scan as rs
     return {"flash_attention": fa.LAUNCHES, "rwkv_scan": rs.LAUNCHES,
-            "quantize": qb.LAUNCHES}
+            "quantize": qb.LAUNCHES,
+            "quantize_by_group": qb.LAUNCHES_BY_GROUP}
 
 
 def _zero_counts() -> None:
@@ -2662,8 +2761,8 @@ def train_run(name: str, profile: bool) -> dict:
         for c, a in billed)
     comm = [float(c) for c, _ in billed]
     per = {k: v / (n * TRAIN_ROUNDS) for k, v in counts.items()}
-    fwd, bwd = (("flash_attention", "flash_attention_bwd")
-                if cfg.family == "dense" else ("rwkv_scan", "rwkv_scan_bwd"))
+    fwd, bwd = (("rwkv_scan", "rwkv_scan_bwd") if cfg.family == "ssm"
+                else ("flash_attention", "flash_attention_bwd"))
     out.update(loss=losses, seconds_per_round=seconds,
                mean_seconds_per_round=sum(seconds) / len(seconds),
                tokens_per_s=n * TRAIN_SEQ * len(seconds) / sum(seconds),
@@ -2717,7 +2816,7 @@ def heldout_losses(arch: str, preset: str, state) -> list:
 
 def entry_point_runs() -> dict:
     """``python -m repro_torch.launch.train --arch A --preset P --steps
-    ENTRY_STEPS`` (through ``main``) on the card for the three archs at
+    ENTRY_STEPS`` (through ``main``) on the card for ENTRY_ARCHS at
     the ``100m`` (float32, hd 64) and ``smoke`` presets. Gates: every loss
     finite, and the held-out batch's loss at the returned state below its
     loss at the initial one. Each step's loss is on a fresh batch, whose
@@ -2806,9 +2905,9 @@ def train_card_vs_cpu() -> dict:
 
 def train_phase(card: str, profile: bool) -> tuple:
     """The train phase: the backward kernels against their plain versions,
-    the two full-width train runs, the entry point and the card against
+    the full-width train runs, the entry point and the card against
     the CPU. Emits each part's record; returns the backward kernels' rows
-    and each kernel's launches over the two train runs."""
+    and each kernel's launches over the train runs."""
     rec, rows = backward_kernel_checks(profile)
     emit(dict(rec, card=card))
     _free()
@@ -3074,7 +3173,7 @@ def main() -> int:
     # the single-device rounds, the mesh runs, the two-tier runs off the
     # mesh and the scheduler's runs; "launches" is their sum
     for k, entry in kernels.items():
-        by_path = {"slice": slice_out["launches"][k]}
+        by_path = {"slice": slice_out["launches"].get(k, 0)}
         for path, counts in {**mesh_out["launches"],
                              **sched_out["launches"]}.items():
             by_path[path] = sum(counts.get(c, 0)
@@ -3111,15 +3210,18 @@ def main() -> int:
     _free()
     emit(dict(serve_smoke_presets(), card=card))
     # gemma3's decode against prefill at a multiple of its window (2048),
-    # above it (1500) and below it (600)
-    for aid, counter, key, int8_tokens, prompts in (
+    # above it (1500) and below it (600); qwen3-moe at SERVE_QWEN3_LAYERS
+    # of its 94 layers
+    for aid, counter, key, int8_tokens, prompts, layers in (
             ("phi3-medium-14b", fa.LAUNCHES, "flash_attention",
-             NEW_TOKENS_INT8, (PROMPT_LEN,)),
-            ("rwkv6-3b", rs.LAUNCHES, "rwkv_scan", 0, (PROMPT_LEN,)),
+             NEW_TOKENS_INT8, (PROMPT_LEN,), 0),
+            ("rwkv6-3b", rs.LAUNCHES, "rwkv_scan", 0, (PROMPT_LEN,), 0),
             ("gemma3-12b", fa.LAUNCHES, "flash_attention", NEW_TOKENS_INT8,
-             (PROMPT_LEN, 1500, 600))):
+             (PROMPT_LEN, 1500, 600), 0),
+            ("qwen3-moe-235b-a22b", fa.LAUNCHES, "flash_attention",
+             NEW_TOKENS_INT8, (PROMPT_LEN,), SERVE_QWEN3_LAYERS)):
         served = serve_model(aid, counter, key, int8_tokens, profile,
-                             prompts)
+                             prompts, layers)
         emit(dict(served, card=card))
         # the serve path's launches: the sum over the archs of the row's
         # kernel, each counted from 0 over its own measured requests
@@ -3131,7 +3233,7 @@ def main() -> int:
         row.update(launches=total, launches_by_path={"serve": total})
     _free()
     bwd_rows, train_launches = train_phase(card, profile)
-    # the train path's launches: the two full-width runs' timed rounds
+    # the train path's launches: the full-width runs' timed rounds
     for key, row in list(lm_kernels.items()) + list(kernels.items()):
         n = sum(train_launches.get(c, 0) for c in ROW_COUNTS.get(key, (key,)))
         if n:

@@ -49,6 +49,8 @@ _VARIANTS = ("quantize", "quantize_seeded", "encode", "encode_seeded",
              "quantize_block")
 LAUNCHES = {**{k: 0 for k in _VARIANTS}, "decode_reduce": 0,
             **{k + "_small": 0 for k in _VARIANTS}}
+# the same ``_small`` launches by group: ``"<variant>_small_g<group>"``
+LAUNCHES_BY_GROUP: dict = {}
 
 _LIB = None
 
@@ -56,6 +58,7 @@ _LIB = None
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    LAUNCHES_BY_GROUP.clear()
 
 
 def kernel_group_ok(group: int) -> bool:
@@ -129,7 +132,12 @@ def _seed_u32(seed) -> int:
 
 
 def _count(variant: str, group: int) -> None:
-    LAUNCHES[variant if group >= 128 else variant + "_small"] += 1
+    if group >= 128:
+        LAUNCHES[variant] += 1
+        return
+    LAUNCHES[variant + "_small"] += 1
+    key = f"{variant}_small_g{group}"
+    LAUNCHES_BY_GROUP[key] = LAUNCHES_BY_GROUP.get(key, 0) + 1
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,7 @@
 """Public model API (the port of ``repro/models/model.py``):
 ``build_model(cfg, device) -> Model(init, prefill, decode, init_cache,
 loss_fn)`` for the families ``dense`` (with gemma3's sliding-window
-layers) and ``ssm``.
+layers), ``moe`` (``attn_moe`` layers: llama4, qwen3) and ``ssm``.
 
 Batch contract: {"tokens": (B, S) int64, "labels": (B, S) int64}.
 
@@ -24,15 +24,21 @@ reference's decode overwrites a position still inside the window (or
 reads positions in the wrong slots) and departs from its own prefill;
 the port's does not.
 
+An ``attn_moe`` layer's cache is an ``attn_mlp`` layer's. Its MoE
+drops by capacity within each token group, which is not causal (a later
+token can take an earlier one's slot), so its decode agrees with its
+prefill only where nothing drops: a decode step's group is one token,
+which never drops.
+
 Training: ``loss_fn(params, batch)`` is the mean next-token
 cross-entropy (``layers.chunked_softmax_xent``) of the stack run with
-every layer rematerialised (``stack_forward(remat=True)``). It takes a
-``Params`` module or the plain tree of ``layers.params_tree`` whose
-leaves require gradients, and runs outside ``inference_mode``;
-``prefill`` and ``decode`` keep theirs. The reference adds ``0.01 * aux``
-(the mixture-of-experts balance loss), which is 0 for the ported
-families. The families moe, hybrid, audio and vlm are not ported yet
-(ROADMAP Queue A item 11).
+every layer rematerialised (``stack_forward(remat=True)``), plus ``0.01
+* aux``, the layers' summed mixture-of-experts balance loss (0 without
+an MoE), as in the reference. It takes a ``Params`` module or the plain
+tree of ``layers.params_tree`` whose leaves require gradients, and runs
+outside ``inference_mode``; ``prefill`` and ``decode`` keep theirs. The
+families hybrid, audio and vlm are not ported yet (ROADMAP Queue A
+items 11d-11f).
 """
 from __future__ import annotations
 
@@ -46,7 +52,7 @@ from ..configs.base import ArchConfig
 from . import layers as L
 from . import transformer as T
 
-SERVED_FAMILIES = ("dense", "ssm")
+SERVED_FAMILIES = ("dense", "moe", "ssm")
 
 
 class Model(NamedTuple):
@@ -56,7 +62,7 @@ class Model(NamedTuple):
     prefill: Callable         # (params, batch, cache_len) -> (last_logits, caches)
     decode: Callable          # (params, caches, token (B,1), pos) -> (logits, caches)
     init_cache: Callable      # (batch_size, seq_len) -> zero caches
-    loss_fn: Callable         # (params, batch) -> mean cross-entropy
+    loss_fn: Callable         # (params, batch) -> mean xent + 0.01 aux
 
 
 def _dtype(cfg):
@@ -111,15 +117,15 @@ def build_model(cfg: ArchConfig, device=None) -> Model:
         the prompt (extra slots are masked in decode via the slot<=pos
         rule), and local rings of min(window, cache_len) slots."""
         x = L.embed(params["embedding"], batch["tokens"]).to(dtype)
-        x, caches = T.stack_forward(pattern, params["layers"], cfg, x,
-                                    want_cache=True)
+        x, caches, _ = T.stack_forward(pattern, params["layers"], cfg, x,
+                                       want_cache=True)
         S = batch["tokens"].shape[1]
         ring_len = min(cfg.window, max(S, cache_len or S))
         for i, kind in enumerate(pattern):
             cache = caches[i]
             if kind == "swa_mlp":
                 caches[i] = _ring(cache, S, ring_len)
-            elif kind == "attn_mlp" and cache_len is not None:
+            elif kind in T.GLOBAL_KINDS and cache_len is not None:
                 n = cache_len - cache["k"].shape[1]
                 if n > 0:
                     for key in ("k", "v", "k_scale", "v_scale"):
@@ -131,12 +137,14 @@ def build_model(cfg: ArchConfig, device=None) -> Model:
 
     def loss_fn(params, batch):
         """Mean cross-entropy of ``batch["labels"]`` (B, S) given
-        ``batch["tokens"]`` (B, S), every layer under remat."""
+        ``batch["tokens"]`` (B, S), every layer under remat, plus 0.01
+        times the summed MoE balance loss."""
         x = L.embed(params["embedding"], batch["tokens"]).to(dtype)
-        x, _ = T.stack_forward(pattern, params["layers"], cfg, x, remat=True)
+        x, _, aux = T.stack_forward(pattern, params["layers"], cfg, x,
+                                    remat=True)
         x = L.rmsnorm(params["final_norm"], x)
         return L.chunked_softmax_xent(params["embedding"], x,
-                                      batch["labels"], cfg)
+                                      batch["labels"], cfg) + 0.01 * aux
 
     @torch.inference_mode()
     def decode(params, caches, token, pos: int):
@@ -160,8 +168,8 @@ def build_model(cfg: ArchConfig, device=None) -> Model:
 
         def one(kind):
             if kind in T.ATTENTION_KINDS:
-                S = seq_len if kind == "attn_mlp" else min(cfg.window,
-                                                           seq_len)
+                S = seq_len if kind in T.GLOBAL_KINDS else min(cfg.window,
+                                                               seq_len)
                 out = {"k": zeros((B, S, KV, hd), kv_store),
                        "v": zeros((B, S, KV, hd), kv_store)}
                 if int8:

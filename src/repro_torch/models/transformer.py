@@ -3,15 +3,19 @@
 Layer "kinds" (composable sublayer patterns):
   attn_mlp   pre-norm GQA attention + SwiGLU MLP        (dense / global)
   swa_mlp    sliding-window attention + MLP             (gemma3 local)
+  attn_moe   attention + mixture-of-experts             (llama4 / qwen3)
   rwkv       RWKV6 time-mix + channel-mix               (rwkv6)
-and, still to port (ROADMAP Queue A item 11), attn_moe (llama4 / qwen3 /
-jamba), mamba_mlp and mamba_moe (jamba), cross_mlp (whisper decoder) and
-enc_mlp (whisper encoder).
+and, still to port (ROADMAP Queue A items 11d-11e), mamba_mlp and
+mamba_moe (jamba), cross_mlp (whisper decoder) and enc_mlp (whisper
+encoder).
 
 ``swa_mlp`` has ``attn_mlp``'s parameters and decode; its prefill runs the
 flash kernel with ``window=cfg.window`` and keeps the last ``window`` keys
 and values as its cache, as the reference does. ``models/model.py`` lays
 them out as a ring that decode can trust at every prompt length.
+``attn_moe`` is ``attn_mlp`` with ``moe.moe_block`` in place of the MLP:
+a global causal attention layer, whose forward also returns the block's
+load-balance loss (0 for every other kind).
 
 The reference stacks each cycle position's parameters along a leading
 axis and runs the stack under ``jax.lax.scan``; the port keeps one
@@ -24,15 +28,19 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from . import layers as L
+from . import moe as MOE
 from . import rwkv as R
 
-PORTED_KINDS = ("attn_mlp", "swa_mlp", "rwkv")
-ATTENTION_KINDS = ("attn_mlp", "swa_mlp")
+PORTED_KINDS = ("attn_mlp", "swa_mlp", "attn_moe", "rwkv")
+ATTENTION_KINDS = ("attn_mlp", "swa_mlp", "attn_moe")
+# the attention kinds whose cache holds every position (no window)
+GLOBAL_KINDS = ("attn_mlp", "attn_moe")
 
 
 def _not_ported(kind):
     return NotImplementedError(
         f"layer kind {kind!r} is not ported yet (ROADMAP Queue A item 11: "
+        f"mamba_mlp and mamba_moe in 11d, cross_mlp and enc_mlp in 11e; "
         f"the port serves the kinds {PORTED_KINDS})")
 
 
@@ -43,18 +51,33 @@ def _not_ported(kind):
 def layer_init(kind, gen, cfg, dtype):
     if kind in ATTENTION_KINDS:
         dev = gen.device
-        return {"norm1": L.rmsnorm_init(cfg.d_model, dtype, dev),
-                "attn": L.attention_init(gen, cfg, dtype),
-                "norm2": L.rmsnorm_init(cfg.d_model, dtype, dev),
-                "mlp": L.mlp_init(gen, cfg.d_model, cfg.d_ff, dtype)}
+        out = {"norm1": L.rmsnorm_init(cfg.d_model, dtype, dev),
+               "attn": L.attention_init(gen, cfg, dtype),
+               "norm2": L.rmsnorm_init(cfg.d_model, dtype, dev)}
+        if kind == "attn_moe":
+            out["moe"] = MOE.moe_init(gen, cfg, dtype)
+        else:
+            out["mlp"] = L.mlp_init(gen, cfg.d_model, cfg.d_ff, dtype)
+        return out
     if kind == "rwkv":
         return R.rwkv_block_init(gen, cfg, dtype)
     raise _not_ported(kind)
 
 
+def _ffn(kind, params, cfg, x):
+    """The layer's second half on ``x``: (output, load-balance loss or
+    None)."""
+    h = L.rmsnorm(params["norm2"], x)
+    if kind == "attn_moe":
+        return MOE.moe_block(params["moe"], cfg, h)
+    return L.mlp(params["mlp"], h), None
+
+
 def layer_forward(kind, params, cfg, x, want_cache=False):
-    """Full-sequence forward. Returns (x, cache_or_None); a local layer's
-    cache holds the last ``cfg.window`` positions, in order."""
+    """Full-sequence forward. Returns (x, cache_or_None, aux): a local
+    layer's cache holds the last ``cfg.window`` positions, in order; aux
+    is the MoE's float32 load-balance loss, None for a kind without one
+    (the reference's 0)."""
     if kind in ATTENTION_KINDS:
         window = cfg.window if kind == "swa_mlp" else 0
         h, k, v = L.full_seq_attention(
@@ -71,11 +94,11 @@ def layer_forward(kind, params, cfg, x, want_cache=False):
                 cache = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
             else:
                 cache = {"k": k, "v": v}
-        h = L.mlp(params["mlp"], L.rmsnorm(params["norm2"], x))
-        return x + h, cache
+        h, aux = _ffn(kind, params, cfg, x)
+        return x + h, cache, aux
     if kind == "rwkv":
         x, state = R.rwkv_block(params, cfg, x)
-        return x, (state if want_cache else None)
+        return x, (state if want_cache else None), None
     raise _not_ported(kind)
 
 
@@ -85,7 +108,7 @@ def layer_decode(kind, params, cfg, x, cache, pos):
         h, new_cache = L.decode_attention(
             params["attn"], cfg, L.rmsnorm(params["norm1"], x), cache, pos)
         x = x + h
-        h = L.mlp(params["mlp"], L.rmsnorm(params["norm2"], x))
+        h, _ = _ffn(kind, params, cfg, x)
         return x + h, new_cache
     if kind == "rwkv":
         return R.rwkv_block(params, cfg, x, state=cache, single_step=True)
@@ -137,23 +160,27 @@ def stack_init(gen, cfg, dtype, pattern=None):
 
 
 def stack_forward(pattern, layers, cfg, x, want_cache=False, remat=False):
-    """Returns (x, per-layer caches). ``remat``: under autograd, each layer
+    """Returns (x, per-layer caches, aux): aux the layers' load-balance
+    losses summed in float32. ``remat``: under autograd, each layer
     runs under ``torch.utils.checkpoint`` (non-reentrant), so only its
     input is kept and its activations are rebuilt in the backward. The
     reference checkpoints a cycle block (``jax.checkpoint`` over the
     scanned block); a layer at a time gives the same numbers with less
     memory, since the port keeps one tree per layer."""
     caches = []
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for kind, p in zip(pattern, layers):
         if remat and torch.is_grad_enabled():
             # the layers draw no random numbers: no RNG state to replay
-            x, cache = checkpoint(layer_forward, kind, p, cfg, x, want_cache,
-                                  use_reentrant=False,
-                                  preserve_rng_state=False)
+            x, cache, a = checkpoint(layer_forward, kind, p, cfg, x,
+                                     want_cache, use_reentrant=False,
+                                     preserve_rng_state=False)
         else:
-            x, cache = layer_forward(kind, p, cfg, x, want_cache)
+            x, cache, a = layer_forward(kind, p, cfg, x, want_cache)
         caches.append(cache)
-    return x, caches
+        if a is not None:
+            aux = aux + a
+    return x, caches, aux
 
 
 def stack_decode(pattern, layers, cfg, x, caches, pos):

@@ -471,8 +471,8 @@ def _loss_grads(model, params, batch, remat):
     p = tree_unflatten(treedef, live)
     cfg = model.cfg
     x = L.embed(p["embedding"], batch["tokens"])
-    x, _ = T.stack_forward(T.layer_pattern(cfg), p["layers"], cfg, x,
-                           remat=remat)
+    x, _, _ = T.stack_forward(T.layer_pattern(cfg), p["layers"], cfg, x,
+                              remat=remat)
     x = L.rmsnorm(p["final_norm"], x)
     loss = L.chunked_softmax_xent(p["embedding"], x, batch["labels"], cfg)
     return loss, torch.autograd.grad(loss, live)

@@ -1,7 +1,9 @@
 """The port's flash-attention (hd 32 to 256) and RWKV6 kernels against
 their plain PyTorch versions, on the card, and the serve paths that run
 them (each arch's smoke preset; gemma3-12b at full width, one cycle of
-six layers and, through the example, all 48). Every test here is marked
+six layers and, through the example, all 48), flash at qwen3-moe's GQA
+group of 16, and the MoE block and a reduced qwen3-moe prefill on the
+card against the CPU. Every test here is marked
 ``cuda`` and
 skips without a CUDA device; the module imports no JAX, so it also runs
 on a machine without it:
@@ -68,6 +70,27 @@ def test_flash_matches_plain(B, Sq, Sk, H, KV, causal, window, hd, dtype):
     want = tfa.flash_attention_plain(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     assert got.dtype == dtype and got.shape == q.shape
+    _close(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,causal", [
+    (1, 333, 333, 16, 1, True),         # ragged against both tiles
+    (2, 200, 450, 32, 2, False),        # non-causal, Sq != Sk
+    (1, 130, 77, 16, 1, True),          # causal, Sq > Sk
+    (4, 2048, 2048, 64, 4, True),       # qwen3-moe's prefill
+])
+def test_flash_gqa_group_16(B, Sq, Sk, H, KV, causal, dtype):
+    """qwen3-moe's GQA group of 16 query heads a KV head (64 over 4) at
+    its hd 128."""
+    dev = _cuda()
+    q = _normal((B, Sq, H, 128), 4, dtype, dev)
+    k = _normal((B, Sk, KV, 128), 5, dtype, dev)
+    v = _normal((B, Sk, KV, 128), 6, dtype, dev)
+    got = tfa.flash_attention(q, k, v, causal=causal)
+    want = tfa.flash_attention_plain(q, k, v, causal=causal)
+    torch.cuda.synchronize()
     _close(got, want, dtype)
 
 
@@ -157,7 +180,8 @@ def test_launch_counters_move():
 
 
 @pytest.mark.parametrize("arch", ["rwkv6-3b", "phi3-medium-14b",
-                                  "gemma3-12b"])
+                                  "gemma3-12b", "qwen3-moe-235b-a22b",
+                                  "llama4-maverick-400b-a17b"])
 def test_serve_smoke_preset(arch):
     """The port's default serve command (``--preset smoke``, the reduced
     float32 config: rwkv6's head dim 16, phi3's and gemma3's 32) on the
@@ -220,3 +244,116 @@ def test_serve_batched_example_full_preset():
     assert tfa.LAUNCHES["flash_attention"] == cfg.n_layers
     assert info["logits_finite"] and toks.shape == (2, 3)
     assert bool(((toks >= 0) & (toks < cfg.vocab)).all())
+
+
+def _moe_cfg(capacity_factor):
+    """qwen3-moe's reduced config widened to 16 experts, top 4, so that
+    groups of 64 tokens drop pairs at ``capacity_factor`` 0.5."""
+    import dataclasses
+    from repro_torch import configs
+    return dataclasses.replace(configs.get("qwen3-moe-235b-a22b").reduced(),
+                               d_model=256, d_ff=192, n_experts=16, top_k=4,
+                               moe_group=64, capacity_factor=capacity_factor)
+
+
+def _assert_top_k_gap(params, cfg, x, gap=1e-5):
+    """Every token's k-th and (k+1)-th router probability over ``gap``
+    apart (on the CPU): a one-ulp difference cannot flip an expert."""
+    from repro_torch.models import moe
+    with torch.no_grad():
+        _, probs, *_ = moe.route(params, cfg, x)
+    top = probs.topk(cfg.top_k + 1, dim=-1).values
+    assert float((top[..., -2] - top[..., -1]).min()) > gap
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("capacity_factor", [1.25, 0.5])
+def test_moe_block_card_matches_cpu(capacity_factor, dtype):
+    """``models.moe.moe_block`` on the card against the same on the CPU
+    (the same weights and tokens): y, the balance loss and the gradient
+    of sum(y * r) / tokens + aux by x and every weight. The router's
+    product is float32 without TF32 on the card too, so both pick the
+    same experts; the expert products differ only in their sums' order
+    (float32 at 1e-4 of the largest entry, bf16 at 2e-2)."""
+    from repro_torch.models import moe
+    from repro_torch.tree import tree_flatten, tree_map, tree_unflatten
+    dev = _cuda()
+    cfg = _moe_cfg(capacity_factor)
+    params = moe.moe_init(torch.Generator().manual_seed(0), cfg, dtype)
+    x = _normal((2, 256, cfg.d_model), 7, torch.float32, "cpu").to(dtype)
+    r = _normal((2, 256, cfg.d_model), 8, torch.float32, "cpu")
+    _assert_top_k_gap(params, cfg, x)
+    outs = {}
+    for where in ("cpu", dev):
+        leaves, treedef = tree_flatten(tree_map(lambda t: t.to(where),
+                                                params))
+        live = [t.clone().requires_grad_() for t in leaves]
+        xl = x.to(where).requires_grad_()
+        moe.reset_dispatch()
+        y, aux = moe.moe_block(tree_unflatten(treedef, live), cfg, xl)
+        kept = moe.DISPATCH["kept"]
+        loss = (y.float() * r.to(where)).sum() / 512 + aux
+        grads = torch.autograd.grad(loss, live + [xl])
+        outs[str(where)] = (y, aux, grads, kept)
+    (y, aux, grads, kept), (yc, auxc, gradsc, keptc) = outs.values()
+    assert kept == keptc
+    if capacity_factor < 1:
+        assert kept < 2 * 256 * cfg.top_k
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for name, a, b in [("y", y, yc), ("aux", aux, auxc)] + [
+            (f"grad {i}", a, b) for i, (a, b) in enumerate(zip(grads,
+                                                               gradsc))]:
+        err = float((a.float() - b.float().to(a.device)).abs().max())
+        assert err <= tol * float(b.float().abs().max()) + 1e-6, (name, err)
+
+
+def test_qwen3_two_layer_prefill_card_matches_cpu():
+    """The reduced qwen3-moe (two attn_moe layers, float32) prefilled on
+    the card and on the CPU from the same weights and tokens: logits and
+    caches within 1e-4, one flash launch per layer on the card."""
+    from repro_torch import configs
+    from repro_torch.models.model import build_model, make_batch
+    from repro_torch.tree import tree_map
+    dev = _cuda()
+    cfg = configs.get("qwen3-moe-235b-a22b").reduced()
+    cpu = build_model(cfg, device="cpu")
+    gen = torch.Generator().manual_seed(1)
+    params = cpu.init(gen)
+    batch = make_batch(gen, cfg, 2, 96)
+    want, want_cache = cpu.prefill(params, batch, cache_len=100)
+    card = build_model(cfg, device=dev)
+    tfa.LAUNCHES["flash_attention"] = 0
+    got, got_cache = card.prefill(params.to(dev), tree_map(
+        lambda t: t.to(dev), batch), cache_len=100)
+    assert tfa.LAUNCHES["flash_attention"] == cfg.n_layers
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    for a, b in zip(got_cache, want_cache):
+        for key in b:
+            torch.testing.assert_close(a[key].cpu(), b[key], rtol=1e-4,
+                                       atol=1e-4)
+
+
+def test_router_stays_float32_under_tf32():
+    """With TF32 turned on for float32 products, the router's logits on
+    the card are still the full float32 product (the CPU's within float32
+    rounding, the same experts chosen), and the setting is restored."""
+    from repro_torch.models import moe
+    dev = _cuda()
+    cfg = _moe_cfg(1.25)
+    params = moe.moe_init(torch.Generator().manual_seed(2), cfg,
+                          torch.float32)
+    x = _normal((2, 256, cfg.d_model), 10, torch.float32, "cpu")
+    _assert_top_k_gap(params, cfg, x)
+    card = {"router": params["router"].to(dev)}
+    before = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        _, probs, _, eid, pos, _ = moe.route(card, cfg, x.to(dev))
+        assert torch.backends.cuda.matmul.allow_tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before
+    _, want, _, eid_cpu, pos_cpu, _ = moe.route(params, cfg, x)
+    assert torch.equal(eid.cpu(), eid_cpu) and torch.equal(pos.cpu(),
+                                                            pos_cpu)
+    torch.testing.assert_close(probs.cpu(), want, rtol=1e-5, atol=1e-7)

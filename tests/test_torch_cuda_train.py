@@ -1,6 +1,7 @@
 """Training on the card: the forward's log-sum-exp and the backward
 kernels of flash attention and the WKV6 scan against their plain versions
-(every head dim, dtype and mask they take), the flash backward's bits run
+(every head dim, dtype and mask they take; flash at qwen3-moe's GQA
+group of 16), the flash backward's bits run
 to run, their launch counts through autograd, the refusal of what they do
 not take, a smoke-preset train step and the training example.
 Every test here is marked ``cuda`` and skips without a CUDA device; the
@@ -71,6 +72,29 @@ def test_flash_backward_kernel_matches_plain(B, Sq, Sk, H, KV, causal,
     torch.cuda.synchronize()
     want = ref.flash_attention_backward_plain(q, k, v, o, do, causal=causal,
                                               window=window)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        _close(g, w, dtype, name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,causal", [
+    (1, 333, 333, 16, 1, True),         # ragged against both tiles
+    (2, 200, 450, 32, 2, False),        # non-causal, Sq != Sk
+    (1, 2048, 2048, 64, 4, True),       # qwen3-moe's train shape
+])
+def test_flash_backward_gqa_group_16(B, Sq, Sk, H, KV, causal, dtype):
+    """The backward at qwen3-moe's GQA group of 16 (64 query heads over 4
+    KV heads) and hd 128: the dk/dv kernel sums 16 heads' query tiles."""
+    dev = _cuda()
+    q = _normal((B, Sq, H, 128), 10, dtype, dev)
+    k = _normal((B, Sk, KV, 128), 11, dtype, dev)
+    v = _normal((B, Sk, KV, 128), 12, dtype, dev)
+    do = _normal((B, Sq, H, 128), 13, dtype, dev)
+    o, lse = tfa.flash_attention(q, k, v, causal=causal, return_lse=True)
+    got = tfa.flash_attention_backward(q, k, v, o, lse, do, causal=causal)
+    torch.cuda.synchronize()
+    want = ref.flash_attention_backward_plain(q, k, v, o, do, causal=causal)
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         _close(g, w, dtype, name)
 
@@ -231,10 +255,11 @@ def test_backward_refuses_what_the_kernels_do_not_take():
 
 
 def test_smoke_train_step_on_the_card():
-    """One FedMM round of the reduced gemma3 (hd 32, window 16) and rwkv6
-    (hd 16) on the card: finite loss, every flash layer launched twice
-    forward (the step and its rematerialisation) and once backward per
-    client, the uplink encoded."""
+    """One FedMM round of the reduced gemma3 (hd 32, window 16), rwkv6
+    (hd 16), qwen3-moe and llama4 (4 experts, top 2 and top 1) on the
+    card: finite loss, every flash layer launched twice forward (the step
+    and its rematerialisation) and once backward per client, the uplink
+    encoded."""
     import dataclasses
     from repro_torch import configs
     from repro_torch.fed import trainer as FT
@@ -244,7 +269,11 @@ def test_smoke_train_step_on_the_card():
     for arch, counter, fwd, bwd in (
             ("gemma3-12b", tfa.LAUNCHES, "flash_attention",
              "flash_attention_bwd"),
-            ("rwkv6-3b", trs.LAUNCHES, "rwkv_scan", "rwkv_scan_bwd")):
+            ("rwkv6-3b", trs.LAUNCHES, "rwkv_scan", "rwkv_scan_bwd"),
+            ("qwen3-moe-235b-a22b", tfa.LAUNCHES, "flash_attention",
+             "flash_attention_bwd"),
+            ("llama4-maverick-400b-a17b", tfa.LAUNCHES, "flash_attention",
+             "flash_attention_bwd")):
         cfg = dataclasses.replace(configs.get(arch).reduced(), vocab=512)
         model = build_model(cfg)
         fcfg = FT.FedLMConfig(n_clients=2, rho=0.05, quant_bits=8,

@@ -1,7 +1,8 @@
 """The port's serving path against the JAX package on the CPU.
 
 For the two architectures of the reference's fast tier (phi3-medium-14b,
-dense GQA; rwkv6-3b, RWKV6), reduced (2 layers, d_model 128, float32): the
+dense GQA; rwkv6-3b, RWKV6) and the two MoE archs (qwen3-moe-235b-a22b,
+llama4-maverick-400b-a17b), reduced (2 layers, d_model 128, float32): the
 JAX ``model.init(PRNGKey(0))`` weights are carried across with
 ``interop.model_params_to_torch`` and both models get the same numpy
 tokens. Compared: the prefill's last logits and its caches, four greedy
@@ -78,7 +79,10 @@ def _bits16(x):
 
 @pytest.mark.parametrize("aid,kv_dtype", [("phi3-medium-14b", ""),
                                           ("phi3-medium-14b", "int8"),
-                                          ("rwkv6-3b", "")])
+                                          ("rwkv6-3b", ""),
+                                          ("qwen3-moe-235b-a22b", ""),
+                                          ("qwen3-moe-235b-a22b", "int8"),
+                                          ("llama4-maverick-400b-a17b", "")])
 def test_prefill_and_greedy_decode_match(aid, kv_dtype):
     jmodel, jparams, _, tmodel, tparams = _pair(aid, kv_dtype=kv_dtype)
     toks = _tokens(jmodel.cfg.vocab)
@@ -120,7 +124,8 @@ def test_prefill_and_greedy_decode_match(aid, kv_dtype):
         ttok = torch.argmax(tlogits[..., :vocab], dim=-1)
 
 
-@pytest.mark.parametrize("aid", ["phi3-medium-14b", "rwkv6-3b"])
+@pytest.mark.parametrize("aid", ["phi3-medium-14b", "rwkv6-3b",
+                                 "qwen3-moe-235b-a22b"])
 def test_bfloat16_weights_cross_bit_for_bit(aid):
     jmodel, jparams, np_params, tmodel, tparams = _pair(aid,
                                                         dtype="bfloat16")
@@ -147,8 +152,8 @@ def test_bfloat16_weights_cross_bit_for_bit(aid):
 # the port on its own
 # ---------------------------------------------------------------------------
 
-def _port(aid):
-    tcfg = TCFG.get(aid).reduced()
+def _port(aid, **changes):
+    tcfg = dataclasses.replace(TCFG.get(aid).reduced(), **changes)
     model = t_build(tcfg, device="cpu")
     gen = torch.Generator().manual_seed(0)
     return model, model.init(gen), make_batch(gen, tcfg, B, S + 1)
@@ -178,6 +183,24 @@ def test_decode_consistency_attention():
     np.testing.assert_allclose(np_of(logits), np_of(want), **CONSISTENCY_TOL)
 
 
+@pytest.mark.parametrize("aid", ["qwen3-moe-235b-a22b",
+                                 "llama4-maverick-400b-a17b"])
+def test_decode_consistency_moe(aid):
+    """The MoE archs as ``test_decode_consistency_attention``, rebuilt
+    with the no-drop capacity factor (E) as the reference's own check
+    does: dropping by capacity is not causal (a later token can take an
+    earlier one's slot), so decode matches prefill only when nothing
+    drops."""
+    n_experts = TCFG.get(aid).reduced().n_experts
+    model, params, batch = _port(aid, capacity_factor=float(n_experts))
+    toks = batch["tokens"]
+    _, cache = model.prefill(params, {"tokens": toks[:, :S]},
+                             cache_len=S + 8)
+    logits, _ = model.decode(params, cache, toks[:, S:S + 1], S)
+    want, _ = model.prefill(params, {"tokens": toks})
+    np.testing.assert_allclose(np_of(logits), np_of(want), **CONSISTENCY_TOL)
+
+
 def test_ring_buffer_wraps():
     """Past the cache's end the slot is pos % S_cache and every slot is
     valid: a cache of S slots decodes position S into slot 0."""
@@ -191,7 +214,7 @@ def test_ring_buffer_wraps():
 
 
 def test_init_cache_matches_prefill_layout():
-    for aid in ("phi3-medium-14b", "rwkv6-3b"):
+    for aid in ("phi3-medium-14b", "rwkv6-3b", "qwen3-moe-235b-a22b"):
         model, params, batch = _port(aid)
         _, cache = model.prefill(params, {"tokens": batch["tokens"]},
                                  cache_len=S + 3)
@@ -203,7 +226,7 @@ def test_init_cache_matches_prefill_layout():
 
 def test_unported_families_raise():
     with pytest.raises(NotImplementedError, match="Queue A item 11"):
-        t_build(TCFG.get("qwen3-moe-235b-a22b").reduced(), device="cpu")
+        t_build(TCFG.get("jamba-1.5-large-398b").reduced(), device="cpu")
 
 
 def test_entry_points_default_to_the_gpu():

@@ -119,12 +119,13 @@ def test_chunked_softmax_xent_value_and_grad(S, vocab):
 
 @pytest.mark.parametrize("arch,S", [("phi3-medium-14b", 40),
                                     ("gemma3-12b", 40), ("gemma3-12b", 12),
-                                    ("rwkv6-3b", 40)])
+                                    ("rwkv6-3b", 40),
+                                    ("qwen3-moe-235b-a22b", 40)])
 def test_loss_fn_value_and_grad_match_reference(arch, S):
     """The port's ``loss_fn`` and its ``torch.autograd`` gradient against
     ``jax.value_and_grad`` of the reference's: dense, sliding-window
-    (gemma3's [swa_mlp, attn_mlp], window 16, S above and below it) and
-    rwkv6."""
+    (gemma3's [swa_mlp, attn_mlp], window 16, S above and below it),
+    rwkv6 and qwen3's MoE (the loss with its 0.01 x balance term)."""
     jm, tm, jp, tp = _models(arch)
     jb, tb = _batches(_tokens((2, S + 1), jm.cfg.vocab, 3))
     jl, jg = jax.value_and_grad(jm.loss_fn)(jp, jb)
@@ -144,7 +145,8 @@ def test_loss_fn_value_and_grad_match_reference(arch, S):
 # interop round trips
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", ["gemma3-12b", "rwkv6-3b"])
+@pytest.mark.parametrize("arch", ["gemma3-12b", "rwkv6-3b",
+                                  "qwen3-moe-235b-a22b"])
 def test_model_params_round_trip(arch):
     jcfg, tcfg = _configs(arch, n_layers=4)
     jp = jax.tree.map(np.asarray, j_build(jcfg).init(jax.random.PRNGKey(1)))
@@ -256,7 +258,8 @@ def _n_leaves(tree):
     return len(tree_leaves(tree))
 
 
-@pytest.mark.parametrize("arch", ["phi3-medium-14b", "rwkv6-3b"])
+@pytest.mark.parametrize("arch", ["phi3-medium-14b", "rwkv6-3b",
+                                  "qwen3-moe-235b-a22b"])
 def test_train_step_identity_matches_reference(arch):
     """Three free rounds with the identity compressor: the port's
     trajectory (iterate, variates) and losses follow the reference's."""
