@@ -302,6 +302,37 @@ SMALL_GROUP_SHAPE, SMALL_GROUP = (262144, 3840), 8
 # qwen3-moe's expert leaves w_gate and w_in, (128, 4096, 1536), as the
 # encode takes them: rows of 1536, shard-safe group 16
 EXPERT_LEAF_SHAPE, EXPERT_GROUP = (128 * 4096, 1536), 16
+# past 2^31 elements: the last row starts at element 2^31
+BIG_SHAPE = (2 ** 31 // 4096 + 1, 4096)
+
+
+def encode_past_2_31(qb, gen, seed) -> dict:
+    """One seeded group-8 encode of BIG_SHAPE (2^31 + 4,096 elements,
+    about 12 GB with its codes and scales), whose tiles form 64-bit bases
+    and 32-bit indices inside: the rows around element 2^31 and the last
+    row, bit for bit against the plain encode of those rows with the
+    dither of their global indices."""
+    import torch
+    R, D = BIG_SHAPE
+    x = torch.randn(BIG_SHAPE, generator=gen, device="cuda")
+    x[R - 1, :SMALL_GROUP] = 0.0                 # one all-zero group
+    codes, scales = qb.quantize_encode_grouped(x, bits=BITS,
+                                               group=SMALL_GROUP, seed=seed)
+    torch.cuda.synchronize()
+    rows = [2 ** 31 // D - 2, 2 ** 31 // D - 1, R - 1]
+    idx = (torch.tensor(rows, device="cuda")[:, None] * D
+           + torch.arange(D, device="cuda"))
+    u = qb.ref.hash_uniform(idx, seed & 0xFFFFFFFF)
+    want = qb.quantize_encode_grouped_plain(x[rows], u, bits=BITS,
+                                            group=SMALL_GROUP)
+    got = (codes[rows], scales[rows])
+    require(all(bits_equal(a, b) for a, b in zip(got, want)),
+            f"encode_seeded_small past 2^31 elements: rows {rows} differ "
+            f"from the plain encode")
+    del x, codes, scales, got, want
+    torch.cuda.empty_cache()
+    return {"shape": list(BIG_SHAPE), "group": SMALL_GROUP, "rows": rows,
+            "bit_exact": True}
 
 
 def kernel_checks(qb):
@@ -388,8 +419,10 @@ def kernel_checks(qb):
     del got, want
     record("encode_seeded_small", kern, plain, err, 5 * ne + 4 * ne // ge,
            (OPS_ROUND + OPS_HASH) * ne, iters=10)
-    results["encode_seeded_small"].update(shape=list(SMALL_GROUP_SHAPE),
-                                          group=ge)
+    results["encode_seeded_small"].update(
+        shape=list(SMALL_GROUP_SHAPE), group=ge,
+        pct_of_bound=100 * results["encode_seeded_small"]["bound_ms"]
+        / results["encode_seeded_small"]["ms"])
     del xe
     torch.cuda.empty_cache()
 
@@ -416,6 +449,8 @@ def kernel_checks(qb):
                          / results[name]["ms"])
     del xq
     torch.cuda.empty_cache()
+    results["encode_seeded_small"]["past_2_31"] = encode_past_2_31(qb, gen,
+                                                                   seed)
 
     # the reduce over a C-client stack of payloads encoded by the kernel
     rows = x.shape[0]
@@ -2736,7 +2771,8 @@ def train_run(name: str, profile: bool) -> dict:
     torch.cuda.synchronize()
     if profile:
         # one warm round, its new state dropped
-        emit({"phase": f"profile_{name}", **profiled(lambda: one_round(1))})
+        emit({"phase": f"profile_{name}",
+              **profiled(lambda: one_round(1), watch="small_quant_kernel")})
     torch.cuda.reset_peak_memory_stats()
     _zero_counts()
     losses, seconds, billed = [], [], []
@@ -2922,10 +2958,11 @@ def train_phase(card: str, profile: bool) -> tuple:
     return rows, launches
 
 
-def profiled(fn, top: int = 12):
+def profiled(fn, top: int = 12, watch: str = ""):
     """Run ``fn`` once under torch.profiler; its wall time, the device's
     busy and idle share, and the top operators and kernels by device
-    time."""
+    time; with ``watch``, the device time and launches of the kernels
+    whose names hold it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2951,7 +2988,12 @@ def profiled(fn, top: int = 12):
     busy_s = sum(dev_us(e) for e in on_device) / 1e6
     ops = sorted(((dev_us(e), e.key, e.count) for e in events
                   if e not in on_device), reverse=True)
-    return {"seconds": wall, "device_busy_seconds": busy_s,
+    out = {}
+    if watch:
+        hits = [e for e in on_device if watch in e.key]
+        out["watched"] = {"kernel": watch, "calls": sum(e.count for e in hits),
+                          "ms": sum(dev_us(e) for e in hits) / 1e3}
+    return {**out, "seconds": wall, "device_busy_seconds": busy_s,
             "idle_share": max(0.0, 1.0 - busy_s / wall),
             "kernel_launches": sum(e.count for e in on_device),
             "top_ops": [{"name": k[:60], "ms": us / 1e3, "calls": n}
@@ -3135,6 +3177,17 @@ def main() -> int:
     require(not spilled, f"WKV6 backward kernels spill or are missing: "
             f"{spilled}")
     ptxas["backward_instances"] = instances
+    # the small-group quantizer's instances (encode or not, dither made or
+    # streamed, group 2^0 .. 2^6): none may spill
+    qb_report = build.BUILD_INFO.get(qb.SOURCE.name, "")
+    small = {f"small_quant_kernel_{e}{s}_g{2 ** lg}": ptxas_report(
+        qb_report, f"small_quant_kernelILb{e}ELb{s}ELi{lg}E", 0)
+        for e in (0, 1) for s in (0, 1) for lg in range(7)}
+    require(all(rec["registers"] > 0 and not rec["spill_store_bytes"]
+                and not rec["spill_load_bytes"] for rec in small.values()),
+            f"small-group quantizer kernels spill or are missing: {small}")
+    ptxas["small_quant_registers"] = {k: rec["registers"]
+                                      for k, rec in small.items()}
     emit({"phase": "setup", "card": card, "torch": torch.__version__,
           "cuda": torch.version.cuda, "tf32": False,
           "build_seconds": time.perf_counter() - t0,

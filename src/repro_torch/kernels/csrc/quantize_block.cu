@@ -247,104 +247,229 @@ decode_reduce_kernel(const int8_t* __restrict__ codes,
                        acc[4 * j + 3]);
 }
 
-// Quantize -> dequantize or encode with a power-of-two group g < 128.
+// Quantize -> dequantize or encode with a power-of-two group g = 2^LOG2G
+// below 128.
 //
-// Design: one thread per 4 consecutive elements of the flat stream (a
-// float4 where all four are in range, scalar loads at a ragged tail), so
-// a warp covers 128 contiguous elements, 128 / g whole groups. For g >= 4
-// a group spans L = g / 4 adjacent lanes, aligned to L: each lane folds
-// its four elements, then a shuffle over xor offsets L/2 .. 1 gives every
-// lane of the segment the group's max-abs (the shuffles stay inside the
-// segment). For g = 1 and 2 the groups lie inside the lane. Lanes past
-// the end still join the shuffles (their values are zero and stored
-// nowhere), so the full-warp mask holds. The element's scale is written
-// by the lane holding the group's first element. The rounding (quant_code)
-// and the in-kernel dither (hash_uniform of the flat element index) are
-// quant_kernel's, so both kernels give the plain versions' bits.
+// Design: a warp walks tiles of kSmallChunks chunks of 128 elements of the
+// flat stream; a chunk holds 128 / g whole groups, so no group crosses a
+// chunk or a tile. Lane l owns the float4 at offset 4 l of each chunk
+// (quant_kernel's coalesced layout) and issues the loads of all its
+// chunks, and of their streamed dither, before the first max. For g >= 8 a
+// group spans g / 4 adjacent lanes, aligned to g / 4, and LOG2G - 2 xor
+// shuffles give every lane of the segment the group's max-abs; for g <= 4
+// the groups lie inside the lane. Codes go out as one char4 a float4 (128
+// contiguous bytes a warp and chunk); the lane holding a group's first
+// element stores its scale, so a warp's scale stores are contiguous too.
+//
+// The group is a template constant, so every / g and % g is a shift or a
+// mask and the shuffles unroll. A tile forms its 64-bit base once
+// (addresses stay 64-bit: a leaf may hold more than 2^31 elements); inside
+// it indices are 32-bit, and the hash index static_cast<uint32_t>(base) +
+// local wraps as the element index's low 32 bits do. A grid of about one
+// wave (launch_small_g) walks the tiles in a grid-stride loop. Whole tiles
+// run with no bounds checks. The last, partial tile, if any, falls to the
+// warp whose walk reaches it and takes a guarded path (scalar loads and
+// stores; lanes past the end join the shuffles with zeros, stored
+// nowhere), which keeps the ragged n of groups 1 and 2 and flat streams
+// whose length is not a multiple of 4. The rounding (quant_code) and the
+// dither (hash_uniform) are quant_kernel's, so both kernels give the plain
+// versions' bits.
 //
 // Bound on the H100 (3.35 TB/s): as quant_kernel, 5 n + 4 n / g bytes
-// encoded with the in-kernel dither; at gemma3-12b's embedding (n =
-// 1,006,632,960, g = 8) 5.54 GB, 1.65 ms.
-template <bool ENCODE, bool SEEDED>
-__global__ void __launch_bounds__(kThreads)
-small_quant_kernel(const float* __restrict__ x, const float* __restrict__ u,
-                   float* __restrict__ out, int8_t* __restrict__ codes,
-                   float* __restrict__ scales, long long n, int group,
-                   uint32_t seed, float levels, float inv_levels) {
-  const long long off =
-      (static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x) * 4;
-  const bool whole = off + 4 <= n;
-  float v[4];
-  if (whole) {
-    const float4 t = *reinterpret_cast<const float4*>(x + off);
-    v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
-  } else {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) v[j] = (off + j < n) ? x[off + j] : 0.0f;
-  }
-  float sc[4];
-  if (group >= 4) {
+// encoded with the in-kernel dither: at gemma3-12b's embedding (n =
+// 1,006,632,960, g = 8) 5.54 GB, 1.65 ms; at qwen3-moe's expert leaves (n
+// = 805,306,368, g = 16) 4.23 GB, 1.26 ms. The work per element (an IEEE
+// division with its branch to the slow path, the hash, the rounding: 41
+// instructions in the tile loop's SASS) takes about three quarters of that
+// time to issue, so the loop keeps its integer work to 32-bit adds, shifts
+// and masks. Tiles of 2, 4 and 8 chunks time within 2% of each other on
+// the H100; 8 is the fastest, and the one whose 28 instances ptxas builds
+// with no spill (tests/torch_small_quant_tiles.py).
+constexpr int kSmallChunks = 8;
+constexpr int kSmallTile = kSmallChunks * 128;  // elements a warp tile
+
+// The scale of each of a lane's four elements v: the max-abs of its group
+// of 2^LOG2G elements, over the lane's segment of g / 4 lanes for g >= 8.
+// Every lane of the warp calls it (full-warp shuffles).
+template <int LOG2G>
+__device__ __forceinline__ void group_scales(const float (&v)[4],
+                                             float (&sc)[4]) {
+  if (LOG2G >= 2) {
     float m = max4(0.0f, make_float4(v[0], v[1], v[2], v[3]));
-    for (int o = group / 8; o > 0; o >>= 1)
+#pragma unroll
+    for (int o = (1 << LOG2G) / 8; o > 0; o >>= 1)
       m = nan_max(m, __shfl_xor_sync(0xffffffffu, m, o));
 #pragma unroll
     for (int j = 0; j < 4; ++j) sc[j] = m;
+  } else if (LOG2G == 1) {
+    sc[0] = sc[1] = nan_max(nan_max(0.0f, fabsf(v[0])), fabsf(v[1]));
+    sc[2] = sc[3] = nan_max(nan_max(0.0f, fabsf(v[2])), fabsf(v[3]));
   } else {
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int j0 = j & ~(group - 1);
-      sc[j] = (group == 1) ? nan_max(0.0f, fabsf(v[j]))
-                           : nan_max(nan_max(0.0f, fabsf(v[j0])),
-                                     fabsf(v[j0 + 1]));
-    }
+    for (int j = 0; j < 4; ++j) sc[j] = nan_max(0.0f, fabsf(v[j]));
   }
-  if (off >= n) return;  // after the shuffles
-  float q[4];
+}
+
+// One element's code (ENCODE) or its dequantized value: quant_code, then
+// (q * safe) * inv_levels and zero where the scale is 0, as round_store
+template <bool ENCODE>
+__device__ __forceinline__ float round_one(float x, float d, float sc,
+                                           float levels, float inv_levels) {
+  const bool live = sc > 0.0f;
+  const float safe = live ? sc : 1.0f;
+  const float q = quant_code(x, d, safe, levels);
+  if (ENCODE) return q;
+  return live ? __fmul_rn(__fmul_rn(q, safe), inv_levels) : 0.0f;
+}
+
+// The scales of a lane's four elements at offset local of a tile whose
+// first scale is st: a float4 (g = 1) or a float2 (g = 2) a lane, else
+// one a group, from the lane holding the group's first element
+template <int LOG2G>
+__device__ __forceinline__ void store_scales(float* st, int local, int lane,
+                                             const float (&sc)[4]) {
+  constexpr int kSegMask = (1 << LOG2G) / 4 - 1;  // lanes of a group - 1
+  if (LOG2G == 0)
+    *reinterpret_cast<float4*>(st + local) =
+        make_float4(sc[0], sc[1], sc[2], sc[3]);
+  else if (LOG2G == 1)
+    *reinterpret_cast<float2*>(st + (local >> 1)) = make_float2(sc[0], sc[2]);
+  else if ((lane & kSegMask) == 0)
+    st[local >> LOG2G] = sc[0];
+}
+
+template <bool ENCODE, bool SEEDED, int LOG2G>
+__global__ void __launch_bounds__(kThreads)
+small_quant_kernel(const float* __restrict__ x, const float* __restrict__ u,
+                   float* __restrict__ out, int8_t* __restrict__ codes,
+                   float* __restrict__ scales, long long n, uint32_t seed,
+                   float levels, float inv_levels) {
+  constexpr int kG = 1 << LOG2G;
+  const int lane = threadIdx.x & 31;
+  const long long whole = n / kSmallTile;  // tiles with no bounds checks
+  const long long warps =
+      static_cast<long long>(gridDim.x) * kWarpsPerBlock;
+  long long tile =
+      static_cast<long long>(blockIdx.x) * kWarpsPerBlock + (threadIdx.x >> 5);
+  for (; tile < whole; tile += warps) {
+    const long long base = tile * kSmallTile;
+    const uint32_t base32 = static_cast<uint32_t>(base);
+    float4 t[kSmallChunks], r[kSmallChunks];
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const long long e = off + j;
-    if (e >= n) break;
-    const bool live = sc[j] > 0.0f;
-    const float safe = live ? sc[j] : 1.0f;
-    const float d = SEEDED ? hash_uniform(static_cast<uint32_t>(e), seed)
-                           : u[e];
-    q[j] = quant_code(v[j], d, safe, levels);
-    if (ENCODE) {
-      // q is an integer in [-levels, levels]: the int8 cast is exact
-      if (!whole) codes[e] = static_cast<signed char>(q[j]);
-      if (e % group == 0) scales[e / group] = sc[j];
-    } else {
-      // (q * safe) * inv_levels, as round_store; zero where the scale is 0
-      q[j] = live ? __fmul_rn(__fmul_rn(q[j], safe), inv_levels) : 0.0f;
-      if (!whole) out[e] = q[j];
+    for (int c = 0; c < kSmallChunks; ++c)
+      t[c] = *reinterpret_cast<const float4*>(x + base + c * 128 + 4 * lane);
+    if (!SEEDED) {
+#pragma unroll
+      for (int c = 0; c < kSmallChunks; ++c)
+        r[c] = *reinterpret_cast<const float4*>(u + base + c * 128 + 4 * lane);
+    }
+#pragma unroll
+    for (int c = 0; c < kSmallChunks; ++c) {
+      const int local = c * 128 + 4 * lane;
+      const float v[4] = {t[c].x, t[c].y, t[c].z, t[c].w};
+      float sc[4], d[4], q[4];
+      group_scales<LOG2G>(v, sc);
+      if (SEEDED) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          d[j] = hash_uniform(base32 + static_cast<uint32_t>(local + j),
+                              seed);
+      } else {
+        d[0] = r[c].x; d[1] = r[c].y; d[2] = r[c].z; d[3] = r[c].w;
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        q[j] = round_one<ENCODE>(v[j], d[j], sc[j], levels, inv_levels);
+      if (ENCODE) {
+        // q is an integer in [-levels, levels]: the int8 cast is exact
+        char4 cq;
+        cq.x = static_cast<signed char>(q[0]);
+        cq.y = static_cast<signed char>(q[1]);
+        cq.z = static_cast<signed char>(q[2]);
+        cq.w = static_cast<signed char>(q[3]);
+        *reinterpret_cast<char4*>(codes + base + local) = cq;
+        store_scales<LOG2G>(scales + (base >> LOG2G), local, lane, sc);
+      } else {
+        *reinterpret_cast<float4*>(out + base + local) =
+            make_float4(q[0], q[1], q[2], q[3]);
+      }
     }
   }
-  if (whole) {
-    if (ENCODE) {
-      char4 c;
-      c.x = static_cast<signed char>(q[0]);
-      c.y = static_cast<signed char>(q[1]);
-      c.z = static_cast<signed char>(q[2]);
-      c.w = static_cast<signed char>(q[3]);
-      *reinterpret_cast<char4*>(codes + off) = c;
-    } else {
-      *reinterpret_cast<float4*>(out + off) =
-          make_float4(q[0], q[1], q[2], q[3]);
+  // the last, partial tile, on the warp whose walk reaches it
+  const int rest = static_cast<int>(n - whole * kSmallTile);
+  if (tile != whole || rest == 0) return;
+  const long long base = whole * kSmallTile;
+  const uint32_t base32 = static_cast<uint32_t>(base);
+  for (int c = 0; c * 128 < rest; ++c) {
+    const int local = c * 128 + 4 * lane;
+    float v[4], sc[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      v[j] = local + j < rest ? x[base + local + j] : 0.0f;
+    group_scales<LOG2G>(v, sc);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int e = local + j;
+      if (e >= rest) break;
+      const float d = SEEDED ? hash_uniform(base32 + static_cast<uint32_t>(e),
+                                            seed)
+                             : u[base + e];
+      const float q = round_one<ENCODE>(v[j], d, sc[j], levels, inv_levels);
+      if (ENCODE) {
+        codes[base + e] = static_cast<signed char>(q);
+        if ((e & (kG - 1)) == 0)
+          scales[(base >> LOG2G) + (e >> LOG2G)] = sc[j];
+      } else {
+        out[base + e] = q;
+      }
     }
   }
 }
 
+// small_quant_kernel at group 2^LOG2G on a grid of about one wave: the
+// device's SMs times the blocks an SM holds at once (read on the first
+// launch of the instance and kept), or fewer where the tiles are fewer
+template <bool ENCODE, bool SEEDED, int LOG2G>
+cudaError_t launch_small_g(const float* x, const float* u, float* out,
+                           int8_t* codes, float* scales, long long n,
+                           uint32_t seed, float levels, float inv_levels,
+                           cudaStream_t stream) {
+  static const long long wave = [] {
+    int device = 0, sms = 0, per_sm = 0;
+    cudaGetDevice(&device);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, small_quant_kernel<ENCODE, SEEDED, LOG2G>, kThreads, 0);
+    return static_cast<long long>(sms > 0 ? sms : 1) *
+           (per_sm > 0 ? per_sm : 1);
+  }();
+  const long long tiles = (n + kSmallTile - 1) / kSmallTile;
+  const long long need = (tiles + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  const long long blocks = need < wave ? need : wave;
+  small_quant_kernel<ENCODE, SEEDED, LOG2G>
+      <<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
+          x, u, out, codes, scales, n, seed, levels, inv_levels);
+  return cudaGetLastError();
+}
+
+// the group (a power of two below 128) as the template constant LOG2G
 template <bool ENCODE, bool SEEDED>
 cudaError_t launch_small(const float* x, const float* u, float* out,
                          int8_t* codes, float* scales, long long n, int group,
                          uint32_t seed, float levels, float inv_levels,
                          cudaStream_t stream) {
-  const long long per_block = static_cast<long long>(kThreads) * 4;
-  const long long blocks = (n + per_block - 1) / per_block;
-  small_quant_kernel<ENCODE, SEEDED>
-      <<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
-          x, u, out, codes, scales, n, group, seed, levels, inv_levels);
-  return cudaGetLastError();
+  using Launch = cudaError_t (*)(const float*, const float*, float*, int8_t*,
+                                 float*, long long, uint32_t, float, float,
+                                 cudaStream_t);
+  const Launch by_log2g[] = {
+      launch_small_g<ENCODE, SEEDED, 0>, launch_small_g<ENCODE, SEEDED, 1>,
+      launch_small_g<ENCODE, SEEDED, 2>, launch_small_g<ENCODE, SEEDED, 3>,
+      launch_small_g<ENCODE, SEEDED, 4>, launch_small_g<ENCODE, SEEDED, 5>,
+      launch_small_g<ENCODE, SEEDED, 6>};
+  int log2g = 0;
+  while ((1 << log2g) < group) ++log2g;
+  return by_log2g[log2g](x, u, out, codes, scales, n, seed, levels,
+                         inv_levels, stream);
 }
 
 template <bool ENCODE, bool SEEDED>

@@ -43,7 +43,17 @@ def _inputs(shape, seed):
                                              (5, 7, 1), (7, 6, 2),
                                              (10, 12, 4), (33, 3840, 8),
                                              (9, 80, 16), (3, 480, 32),
-                                             (4, 576, 64)])
+                                             (4, 576, 64),
+                                             # more tiles than one wave of
+                                             # warps walks at once, with a
+                                             # partial last tile at g 8 and
+                                             # 32; a ragged flat n at g 1
+                                             # and 2
+                                             (4099, 3840, 8),
+                                             (4099, 1536, 16),
+                                             (16387, 480, 32),
+                                             (3, 349527, 1),
+                                             (3, 349526, 2)])
 def test_kernels_match_plain(bits, rows, cols, group):
     dev = _cuda()
     x, u = _inputs((rows, cols), rows)
