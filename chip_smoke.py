@@ -34,12 +34,17 @@ points at full width and checks what comes out:
    of 1024 and a ring cache, 8 global; then the int8 KV cache) and of
    qwen3-moe-235b-a22b (8 of its 94 layers, bf16: flash at a GQA group
    of 16 in every prefill layer, then the mixture of experts, 128
-   experts, top 8; then the int8 KV cache), random weights from a seed,
-   batch 4, 2048-token prompts; plus a decode-consistency check of each
-   on a full-width two-layer float32 build (gemma3's one local and one
-   global layer, at prompts of 2048, 1500 and 600 tokens; qwen3's with
-   a capacity that drops nothing); and before them the default serve
-   command (``--preset smoke``, reduced float32 configs) of each arch,
+   experts, top 8; then the int8 KV cache) and of jamba-1.5-large-398b
+   (layers 4-7 of its first period, bf16: three Mamba layers, whose
+   selective scan is plain PyTorch as in the reference, and one attention
+   layer without RoPE, flash at a GQA group of 8; the mixture of experts,
+   16 experts, top 2, in layers 5 and 7; then the int8 KV cache), random
+   weights from a seed, batch 4, 2048-token prompts; plus a
+   decode-consistency check of each on a full-width two-layer float32
+   build (gemma3's one local and one global layer, at prompts of 2048,
+   1500 and 600 tokens; qwen3's and jamba's with a capacity that drops
+   nothing); and before them the default serve command (``--preset
+   smoke``, reduced float32 configs) of each arch,
    llama4-maverick-400b-a17b's too;
 3. the paper's figures (``repro_torch.benchmarks``): Fig. 1 (FedMM against
    naive parameter-space aggregation) and Fig. 2 (control variates) of
@@ -59,11 +64,12 @@ points at full width and checks what comes out:
 4. training (the ``train`` phase, after serving): the backward kernels of
    flash attention (fed the forward's log-sum-exp, the same bits on a
    second launch) and WKV6 against their plain versions, FedMM training
-   of gemma3-12b (6 layers), rwkv6-3b (8 layers) and qwen3-moe-235b-a22b
-   (1 layer) at full width through
-   ``repro_torch.fed.trainer.make_train_step`` (the forward and backward
-   kernels in every layer, ``qb_encode`` on every leaf of at least 65,536
-   elements), ``repro_torch.launch.train`` at the ``100m`` and ``smoke``
+   of gemma3-12b (6 layers), rwkv6-3b (8 layers), qwen3-moe-235b-a22b
+   (1 layer) and jamba-1.5-large-398b (its first layer, a Mamba layer)
+   at full width through ``repro_torch.fed.trainer.make_train_step``
+   (the forward and backward kernels in every attention or rwkv layer,
+   ``qb_encode`` on every leaf of at least 65,536 elements whose group
+   is not 1), ``repro_torch.launch.train`` at the ``100m`` and ``smoke``
    presets, and three smoke rounds on the card against the CPU.
 
 Each phase prints one JSON line, and a line on standard error with the
@@ -115,7 +121,12 @@ SEED = 0
 SERVE_BATCH, PROMPT_LEN, NEW_TOKENS, NEW_TOKENS_INT8 = 4, 2048, 32, 8
 # qwen3-moe-235b-a22b served at full width, 8 of its 94 layers: 19.9 B
 # layer parameters and 1.25 B of embedding and head, 42 GB in bf16
-SERVE_QWEN3_LAYERS = 8
+SERVE_QWEN3 = {"n_layers": 8}
+# jamba-1.5-large-398b served at full width, layers 4-7 of its first period
+# of 8 ([mamba_mlp, mamba_moe, mamba_mlp, attn_moe]: every kind it has, in
+# the period's order, 23.0 B parameters, 46 GB in bf16; the whole period,
+# 45.2 B, does not fit one card)
+SERVE_JAMBA = {"n_layers": 4, "attn_every": 4}
 CONSISTENCY_TOL = 5e-3            # tests/test_models_smoke.py, float32
 # kernel against plain version, |got - want| <= atol + rtol |want|. Both
 # sides compute in float32 and differ only in the order of their sums, so
@@ -1745,8 +1756,9 @@ def causal_attention_times(q, k, v, pairs: int, check: dict) -> dict:
 
 def lm_kernel_checks():
     """Flash attention at phi3's prefill shape (bf16, B 4, S 2048, H 40,
-    KV 10, hd 128, causal) and qwen3-moe's (H 64 over KV 4, a GQA group
-    of 16), each timed by ``causal_attention_times``, a sliding-window and
+    KV 10, hd 128, causal), qwen3-moe's (H 64 over KV 4, a GQA group of
+    16) and jamba's (H 64 over KV 8, a group of 8), each timed by
+    ``causal_attention_times``, a sliding-window and
     a ragged non-causal shape, and gemma3-12b's hd-256 shapes
     (``gemma3_attention_checks``);
     the WKV6 scan at rwkv6's prefill shape (bf16, B 4, S 2048, H 40,
@@ -1804,6 +1816,16 @@ def lm_kernel_checks():
                                         True, 0, bf16)
     del want
     flash["qwen3_group16"] = {
+        "shape": [B, S, S, H, KV, hd], "group": H // KV, "max_abs_err": err,
+        **causal_attention_times(q, k, v, pairs, checks[-1])}
+    del q, k, v
+    # jamba's prefill: 64 query heads over 8 KV heads, a group of 8
+    jamba = configs.get("jamba-1.5-large-398b")
+    H, KV, hd = jamba.n_heads, jamba.n_kv_heads, jamba.hd
+    q, k, v, want, err = attention_case("jamba prefill", B, S, S, H, KV, hd,
+                                        True, 0, bf16)
+    del want
+    flash["jamba_group8"] = {
         "shape": [B, S, S, H, KV, hd], "group": H // KV, "max_abs_err": err,
         **causal_attention_times(q, k, v, pairs, checks[-1])}
     del q, k, v
@@ -1945,14 +1967,17 @@ def serve_smoke_presets():
     repro_torch.launch.serve --arch A`` (``--preset smoke``: the reduced
     float32 config, two layers; rwkv6's head dim 16, phi3's, gemma3's and
     the MoE archs' 32, gemma3's layers [swa_mlp, attn_mlp] with a window
-    of 16, qwen3-moe's and llama4's 4 experts, top 2 and top 1), for
-    every ported arch, through ``launch/serve.py:main`` on the card: ids
-    in [0, vocab), finite logits, one kernel launch per layer in the one
+    of 16, qwen3-moe's and llama4's 4 experts, top 2 and top 1, jamba's
+    [mamba_mlp, attn_moe]), for every ported arch, through
+    ``launch/serve.py:main`` on the card: ids in [0, vocab), finite
+    logits, one kernel launch per layer that runs the kernel in the one
     prefill (counts set to 0 just before, read just after)."""
     from repro_torch import configs
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import rwkv_scan as rs
     from repro_torch.launch import serve
+    from repro_torch.models import mamba
+    from repro_torch.models import transformer as T
 
     out = {"phase": "serve_smoke_preset", "archs": {}}
     for aid, counter, key in (("phi3-medium-14b", fa.LAUNCHES,
@@ -1963,48 +1988,77 @@ def serve_smoke_presets():
                               ("qwen3-moe-235b-a22b", fa.LAUNCHES,
                                "flash_attention"),
                               ("llama4-maverick-400b-a17b", fa.LAUNCHES,
+                               "flash_attention"),
+                              ("jamba-1.5-large-398b", fa.LAUNCHES,
                                "flash_attention")):
         cfg = configs.get(aid).reduced()
+        want = kernel_layers(cfg)
         counter[key] = 0
+        mamba.LAUNCHES["ssm_scan"] = 0
         toks, info = serve.main(["--arch", aid, "--device", "cuda"])
         require(bool(((toks >= 0) & (toks < cfg.vocab)).all()),
                 f"{aid} smoke: a generated id outside [0, vocab)")
         require(info["logits_finite"], f"{aid} smoke: a logit is not finite")
-        require(counter[key] == cfg.n_layers,
+        require(counter[key] == want,
                 f"{aid} smoke: {counter[key]} {key} launches in one prefill, "
-                f"want {cfg.n_layers}")
+                f"want {want}")
         out["archs"][aid] = {"hd": cfg.rwkv_head_dim if cfg.family == "ssm"
                              else cfg.hd, "dtype": cfg.dtype,
+                             "pattern": T.layer_pattern(cfg),
                              "launches": counter[key],
+                             "ssm_scan_calls": mamba.LAUNCHES["ssm_scan"],
                              "ids_seq0": toks[0].tolist(),
                              "prefill_seconds": info["prefill_seconds"]}
     return out
 
 
+def kernel_layers(cfg) -> int:
+    """The layers whose prefill launches the arch's sequence kernel once:
+    the WKV6 scan in every rwkv layer, flash in every attention layer
+    (none in a Mamba layer)."""
+    from repro_torch.models import transformer as T
+    kinds = ("rwkv",) if cfg.family == "ssm" else T.ATTENTION_KINDS
+    return sum(kind in kinds for kind in T.layer_pattern(cfg))
+
+
+def scan_calls_per_prefill(cfg, seq_len: int) -> int:
+    """What ``mamba.LAUNCHES["ssm_scan"]`` counts for one forward of every
+    Mamba layer of ``cfg`` over ``seq_len`` tokens."""
+    from repro_torch.models import mamba
+    from repro_torch.models import transformer as T
+    n = sum(kind in T.MAMBA_KINDS for kind in T.layer_pattern(cfg))
+    chunks = -(-seq_len // mamba.CHUNK)
+    return n * (mamba.CALLS_PER_CHUNK * chunks + seq_len)
+
+
 def decode_consistency(cfg, recurrent: bool, prompts=(PROMPT_LEN,)):
     """A full-width two-layer float32 build of ``cfg`` (gemma3's with
-    ``global_every=2``: one local layer, window 1024, and one global; an
-    MoE's with the no-drop capacity factor E, as the reference's check:
-    dropping by capacity is not causal):
+    ``global_every=2``: one local layer, window 1024, and one global;
+    jamba's with ``attn_every=2``, its ``reduced()`` pattern [mamba_mlp,
+    attn_moe]; an MoE's with the no-drop capacity factor E, as the
+    reference's check: dropping by capacity is not causal):
     decode(prefill(x[:S]), x[S], pos=S) against prefill(x[:S+1])'s last
     logits at each S of ``prompts``, within CONSISTENCY_TOL
     (tests/test_models_smoke.py's checks; the attention cache is
-    allocated S + 8 long)."""
+    allocated S + 8 long). Reports the peak memory."""
     import dataclasses
     import torch
     from repro_torch.models import transformer as T
     from repro_torch.models.model import build_model, make_batch
 
     cfg2 = dataclasses.replace(cfg, n_layers=2, dtype="float32",
-                               global_every=min(cfg.global_every, 2))
+                               global_every=min(cfg.global_every, 2),
+                               attn_every=min(cfg.attn_every, 2))
     if cfg.n_experts:
         cfg2 = dataclasses.replace(cfg2,
                                    capacity_factor=float(cfg.n_experts))
+    torch.cuda.reset_peak_memory_stats()
     model = build_model(cfg2, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
     params = model.init(gen)
     toks = make_batch(gen, cfg2, SERVE_BATCH, max(prompts) + 1)["tokens"]
     out = {"layers": T.layer_pattern(cfg2), "dtype": "float32",
+           "parameters": sum(p.numel() for p in params.parameters()),
            "capacity_factor": cfg2.capacity_factor, "tol": CONSISTENCY_TOL,
            "checks": []}
     for S in prompts:
@@ -2023,6 +2077,7 @@ def decode_consistency(cfg, recurrent: bool, prompts=(PROMPT_LEN,)):
         out["checks"].append({"prompt": S, "cache_len": cache_len,
                               "max_abs_err": err})
         del cache, got, want
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
     del params
     _free()
     return out
@@ -2044,27 +2099,32 @@ def cache_bytes_by_kind(cfg, batch: int, seq_len: int) -> dict:
 
 def serve_model(aid: str, launches: dict, per_prefill_name: str,
                 int8_tokens: int, profile: bool, prompts=(PROMPT_LEN,),
-                layers: int = 0):
+                overrides=None):
     """The serving path for one architecture at full width and depth (or
-    its first ``layers`` layers): random bf16 weights on the card from
-    SEED (one matrix at a time), a warm-up request, then batch
-    SERVE_BATCH of PROMPT_LEN-token prompts with NEW_TOKENS greedy
+    the depth that the config ``overrides`` give): random bf16 weights on
+    the card from SEED (one matrix at a time), a warm-up request, then
+    batch SERVE_BATCH of PROMPT_LEN-token prompts with NEW_TOKENS greedy
     tokens, and (``int8_tokens`` > 0) the same batch with the int8 KV
     cache; the cache's bytes by layer kind; peak memory under 80 GB; for
     an MoE, the share of (token, choice) pairs its capacity dropped in
-    the measured prefill; then ``decode_consistency`` at ``prompts``.
-    ``launches`` is the kernel's counter: set to 0 just before the
-    measured requests, read just after."""
+    the measured prefill, over its MoE layers; for Mamba layers, the
+    scan's calls in that prefill; then ``decode_consistency`` at
+    ``prompts``. ``launches`` is the kernel's counter: set to 0 just
+    before the measured requests, read just after; it must count one
+    launch per layer that runs the kernel (``kernel_layers``) and
+    prefill."""
     import dataclasses
     import torch
     from repro_torch import configs
     from repro_torch.launch.serve import serve
-    from repro_torch.models import moe
+    from repro_torch.models import mamba, moe
+    from repro_torch.models import transformer as T
     from repro_torch.models.model import build_model, make_batch
 
-    cfg = configs.get(aid)
-    if layers:
-        cfg = dataclasses.replace(cfg, n_layers=layers)
+    cfg = dataclasses.replace(configs.get(aid), **(overrides or {}))
+    pattern = T.layer_pattern(cfg)
+    n_kernel = kernel_layers(cfg)
+    n_moe = sum(kind in T.MOE_KINDS for kind in pattern)
     model = build_model(cfg, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     torch.cuda.synchronize()
@@ -2072,7 +2132,8 @@ def serve_model(aid: str, launches: dict, per_prefill_name: str,
     params = model.init(gen)
     torch.cuda.synchronize()
     out = {"phase": f"serve_{aid.split('-')[0]}", "arch": aid,
-           "layers": cfg.n_layers, "init_seconds": time.perf_counter() - t0,
+           "layers": cfg.n_layers, "pattern": pattern,
+           "init_seconds": time.perf_counter() - t0,
            "parameters": sum(p.numel() for p in params.parameters()),
            "parameter_bytes": sum(p.numel() * p.element_size()
                                   for p in params.parameters()),
@@ -2083,33 +2144,40 @@ def serve_model(aid: str, launches: dict, per_prefill_name: str,
 
     launches[per_prefill_name] = 0
     moe.reset_dispatch()
+    mamba.LAUNCHES["ssm_scan"] = 0
     torch.cuda.reset_peak_memory_stats()
     toks, info = serve(model, params, batch, NEW_TOKENS)
     peak = torch.cuda.max_memory_allocated()
     out["bf16_kv"] = dict(info, new_tokens=NEW_TOKENS,
                           launches=launches[per_prefill_name],
+                          ssm_scan_calls=mamba.LAUNCHES["ssm_scan"],
                           peak_bytes=peak,
                           cache_bytes=cache_bytes_by_kind(
                               cfg, SERVE_BATCH, PROMPT_LEN + NEW_TOKENS),
                           ids_seq0=toks[0].tolist())
     _check_served(cfg, toks, info, NEW_TOKENS)
     require(peak < 80e9, f"{aid}: peak {peak} bytes")
-    if cfg.n_experts:
+    # the scan runs in a prefill only: a decode step is one update
+    want_scan = scan_calls_per_prefill(cfg, PROMPT_LEN)
+    require(mamba.LAUNCHES["ssm_scan"] == want_scan,
+            f"{aid}: {mamba.LAUNCHES['ssm_scan']} scan calls in one "
+            f"prefill, want {want_scan}")
+    if n_moe:
         # a decode step's group is one token, which never drops: every
         # dropped pair is the prefill's
-        prefill_pairs = SERVE_BATCH * PROMPT_LEN * cfg.top_k * cfg.n_layers
-        decode_pairs = (SERVE_BATCH * cfg.top_k * cfg.n_layers
-                        * (NEW_TOKENS - 1))
+        prefill_pairs = SERVE_BATCH * PROMPT_LEN * cfg.top_k * n_moe
+        decode_pairs = SERVE_BATCH * cfg.top_k * n_moe * (NEW_TOKENS - 1)
         require(moe.DISPATCH["pairs"] == prefill_pairs + decode_pairs,
                 f"{aid}: {moe.DISPATCH} routed pairs, want {prefill_pairs} "
                 f"+ {decode_pairs}")
         dropped = moe.DISPATCH["pairs"] - moe.DISPATCH["kept"]
-        out["bf16_kv"].update(moe_pairs_prefill=prefill_pairs,
+        out["bf16_kv"].update(moe_layers=n_moe,
+                              moe_pairs_prefill=prefill_pairs,
                               moe_pairs_dropped=dropped,
                               moe_dropped_share=dropped / prefill_pairs)
-    require(launches[per_prefill_name] == cfg.n_layers,
+    require(launches[per_prefill_name] == n_kernel,
             f"{per_prefill_name}: {launches[per_prefill_name]} launches in "
-            f"one prefill, want one per layer ({cfg.n_layers})")
+            f"one prefill, want one per layer that runs it ({n_kernel})")
     if int8_tokens:
         model8 = build_model(dataclasses.replace(cfg, kv_dtype="int8"),
                              device="cuda")
@@ -2124,7 +2192,7 @@ def serve_model(aid: str, launches: dict, per_prefill_name: str,
                               ids_seq0=toks8[0].tolist())
     count = launches[per_prefill_name]
     n_prefills = 2 if int8_tokens else 1
-    require(count == n_prefills * cfg.n_layers,
+    require(count == n_prefills * n_kernel,
             f"{per_prefill_name}: {count} launches in {n_prefills} prefills")
     out["launches"] = count
     if profile:
@@ -2419,11 +2487,13 @@ TRAIN_RUNS = {
     "train_gemma3": ("gemma3-12b", 6, 2, False),
     "train_rwkv6": ("rwkv6-3b", 8, 4, True),
     "train_qwen3": ("qwen3-moe-235b-a22b", 1, 2, False),
+    # the first layer, mamba_mlp: 2.10 B parameters with embedding and head
+    "train_jamba": ("jamba-1.5-large-398b", 1, 2, False),
 }
 # the entry point's runs (python -m repro_torch.launch.train)
 ENTRY_STEPS = 20
 ENTRY_ARCHS = ("phi3-medium-14b", "gemma3-12b", "rwkv6-3b",
-               "qwen3-moe-235b-a22b")
+               "qwen3-moe-235b-a22b", "jamba-1.5-large-398b")
 CARD_VS_CPU_ROUNDS, CARD_VS_CPU_LOSS_RTOL = 3, 1e-4
 REPLACES_BWD = {
     # the reference differentiates jnp code: what the backward kernels
@@ -2688,9 +2758,11 @@ def _launch_counters():
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import quantize_block as qb
     from repro_torch.kernels import rwkv_scan as rs
+    from repro_torch.models import mamba
     return {"flash_attention": fa.LAUNCHES, "rwkv_scan": rs.LAUNCHES,
             "quantize": qb.LAUNCHES,
-            "quantize_by_group": qb.LAUNCHES_BY_GROUP}
+            "quantize_by_group": qb.LAUNCHES_BY_GROUP,
+            "ssm_scan": mamba.LAUNCHES}
 
 
 def _zero_counts() -> None:
@@ -2710,8 +2782,9 @@ def train_run(name: str, profile: bool) -> dict:
     timed (the counters zeroed just before them), each client a batch of
     1 x TRAIN_SEQ tokens (+1 for the labels). Gates: finite losses, peak
     under 80 GB, per client and round two forward and one backward launch
-    of the layer's kernel per layer (the step and its rematerialisation),
-    one encode per kernel-route leaf, uplink bytes equal to
+    of the layer's kernel per layer that runs it (the step and its
+    rematerialisation; a Mamba layer runs the plain scan twice), one
+    encode per kernel-route leaf, uplink bytes equal to
     ``payload_bytes``."""
     import dataclasses
     import torch
@@ -2749,8 +2822,8 @@ def train_run(name: str, profile: bool) -> dict:
     payload = comp.payload_bytes(state.s_hat)
     # every leaf of at least KERNEL_DISPATCH_MIN elements is encoded by
     # the kernel, whatever its shard-safe group (the largest power of two
-    # dividing D / 32, at most BLOCK: 8 to 128 here); a group of 1 would
-    # travel raw, as in the reference
+    # dividing D / 32, at most BLOCK: 1 to 256 here); a group of 1
+    # travels raw, as in the reference (jamba's w_bc and A_log)
     large = [x for x in leaves if x.numel() >= C.KERNEL_DISPATCH_MIN]
     groups = [C.group_size(x.shape[-1], BLOCK) for x in large]
     require(all(qb.kernel_group_ok(g) for g in groups),
@@ -2799,6 +2872,8 @@ def train_run(name: str, profile: bool) -> dict:
     per = {k: v / (n * TRAIN_ROUNDS) for k, v in counts.items()}
     fwd, bwd = (("rwkv_scan", "rwkv_scan_bwd") if cfg.family == "ssm"
                 else ("flash_attention", "flash_attention_bwd"))
+    n_kernel = kernel_layers(cfg)
+    want_scan = 2 * scan_calls_per_prefill(cfg, TRAIN_SEQ)
     out.update(loss=losses, seconds_per_round=seconds,
                mean_seconds_per_round=sum(seconds) / len(seconds),
                tokens_per_s=n * TRAIN_SEQ * len(seconds) / sum(seconds),
@@ -2806,13 +2881,18 @@ def train_run(name: str, profile: bool) -> dict:
                comm_bytes_billed=comm, payload_bytes=payload,
                kernel_route_leaves=kernel_leaves,
                kernel_route_groups=sorted(set(groups)),
+               large_leaves_by_group={str(g): groups.count(g)
+                                      for g in sorted(set(groups))},
                launches=counts, launches_per_client_round=per)
     require(all(v == v and abs(v) < float("inf") for v in losses),
             f"{name}: a loss is not finite: {losses}")
     require(peak < 80e9, f"{name}: peak {peak} bytes")
-    require(per.get(fwd, 0) == 2 * layers and per.get(bwd, 0) == layers,
+    require(per.get(fwd, 0) == 2 * n_kernel and per.get(bwd, 0) == n_kernel,
             f"{name}: {fwd} / {bwd} launches per client and round {per}, "
-            f"want {2 * layers} / {layers}")
+            f"want {2 * n_kernel} / {n_kernel}")
+    require(per.get("ssm_scan", 0) == want_scan,
+            f"{name}: scan calls per client and round {per}, want "
+            f"{want_scan}")
     require(per.get("encode_seeded_small", 0) == small_leaves
             and per.get("encode_seeded", 0) == kernel_leaves - small_leaves
             and per.get("encode", 0) == per.get("encode_small", 0) == 0,
@@ -3263,18 +3343,20 @@ def main() -> int:
     _free()
     emit(dict(serve_smoke_presets(), card=card))
     # gemma3's decode against prefill at a multiple of its window (2048),
-    # above it (1500) and below it (600); qwen3-moe at SERVE_QWEN3_LAYERS
-    # of its 94 layers
-    for aid, counter, key, int8_tokens, prompts, layers in (
+    # above it (1500) and below it (600); qwen3-moe at 8 of its 94 layers;
+    # jamba at layers 4-7 of its first period
+    for aid, counter, key, int8_tokens, prompts, overrides in (
             ("phi3-medium-14b", fa.LAUNCHES, "flash_attention",
-             NEW_TOKENS_INT8, (PROMPT_LEN,), 0),
-            ("rwkv6-3b", rs.LAUNCHES, "rwkv_scan", 0, (PROMPT_LEN,), 0),
+             NEW_TOKENS_INT8, (PROMPT_LEN,), None),
+            ("rwkv6-3b", rs.LAUNCHES, "rwkv_scan", 0, (PROMPT_LEN,), None),
             ("gemma3-12b", fa.LAUNCHES, "flash_attention", NEW_TOKENS_INT8,
-             (PROMPT_LEN, 1500, 600), 0),
+             (PROMPT_LEN, 1500, 600), None),
             ("qwen3-moe-235b-a22b", fa.LAUNCHES, "flash_attention",
-             NEW_TOKENS_INT8, (PROMPT_LEN,), SERVE_QWEN3_LAYERS)):
+             NEW_TOKENS_INT8, (PROMPT_LEN,), SERVE_QWEN3),
+            ("jamba-1.5-large-398b", fa.LAUNCHES, "flash_attention",
+             NEW_TOKENS_INT8, (PROMPT_LEN,), SERVE_JAMBA)):
         served = serve_model(aid, counter, key, int8_tokens, profile,
-                             prompts, layers)
+                             prompts, overrides)
         emit(dict(served, card=card))
         # the serve path's launches: the sum over the archs of the row's
         # kernel, each counted from 0 over its own measured requests

@@ -1,7 +1,9 @@
 """Public model API (the port of ``repro/models/model.py``):
 ``build_model(cfg, device) -> Model(init, prefill, decode, init_cache,
 loss_fn)`` for the families ``dense`` (with gemma3's sliding-window
-layers), ``moe`` (``attn_moe`` layers: llama4, qwen3) and ``ssm``.
+layers), ``moe`` (``attn_moe`` layers: llama4, qwen3), ``ssm`` and
+``hybrid`` (jamba: ``mamba_mlp`` and ``mamba_moe`` layers, one
+``attn_moe`` or ``attn_mlp`` layer in ``attn_every``, no RoPE).
 
 Batch contract: {"tokens": (B, S) int64, "labels": (B, S) int64}.
 
@@ -30,6 +32,11 @@ token can take an earlier one's slot), so its decode agrees with its
 prefill only where nothing drops: a decode step's group is one token,
 which never drops.
 
+A Mamba layer's cache is its state: ``"conv"`` (B, d_conv - 1, di) in the
+model dtype, the last raw ``in_proj`` rows before the conv, and ``"ssm"``
+(B, di, d_state) in float32. Prefill's ``cache_len`` pads the attention
+caches only.
+
 Training: ``loss_fn(params, batch)`` is the mean next-token
 cross-entropy (``layers.chunked_softmax_xent``) of the stack run with
 every layer rematerialised (``stack_forward(remat=True)``), plus ``0.01
@@ -37,8 +44,8 @@ every layer rematerialised (``stack_forward(remat=True)``), plus ``0.01
 an MoE), as in the reference. It takes a ``Params`` module or the plain
 tree of ``layers.params_tree`` whose leaves require gradients, and runs
 outside ``inference_mode``; ``prefill`` and ``decode`` keep theirs. The
-families hybrid, audio and vlm are not ported yet (ROADMAP Queue A
-items 11d-11f).
+families audio and vlm are not ported yet (ROADMAP Queue A items
+11e-11f).
 """
 from __future__ import annotations
 
@@ -52,7 +59,7 @@ from ..configs.base import ArchConfig
 from . import layers as L
 from . import transformer as T
 
-SERVED_FAMILIES = ("dense", "moe", "ssm")
+SERVED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
 class Model(NamedTuple):
@@ -182,6 +189,10 @@ def build_model(cfg: ArchConfig, device=None) -> Model:
                         "shift_cm": zeros((B, cfg.d_model), dtype),
                         "wkv": zeros((B, cfg.d_model // hr, hr, hr),
                                      torch.float32)}
+            if kind in T.MAMBA_KINDS:
+                di = cfg.expand * cfg.d_model
+                return {"conv": zeros((B, cfg.d_conv - 1, di), dtype),
+                        "ssm": zeros((B, di, cfg.d_state), torch.float32)}
             raise T._not_ported(kind)
 
         return [one(kind) for kind in pattern]

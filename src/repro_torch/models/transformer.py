@@ -3,11 +3,13 @@
 Layer "kinds" (composable sublayer patterns):
   attn_mlp   pre-norm GQA attention + SwiGLU MLP        (dense / global)
   swa_mlp    sliding-window attention + MLP             (gemma3 local)
-  attn_moe   attention + mixture-of-experts             (llama4 / qwen3)
+  attn_moe   attention + mixture-of-experts             (llama4 / qwen3 /
+                                                         jamba)
   rwkv       RWKV6 time-mix + channel-mix               (rwkv6)
-and, still to port (ROADMAP Queue A items 11d-11e), mamba_mlp and
-mamba_moe (jamba), cross_mlp (whisper decoder) and enc_mlp (whisper
-encoder).
+  mamba_mlp  Mamba SSM + MLP                            (jamba)
+  mamba_moe  Mamba SSM + MoE                            (jamba)
+and, still to port (ROADMAP Queue A item 11e), cross_mlp (whisper
+decoder) and enc_mlp (whisper encoder).
 
 ``swa_mlp`` has ``attn_mlp``'s parameters and decode; its prefill runs the
 flash kernel with ``window=cfg.window`` and keeps the last ``window`` keys
@@ -15,7 +17,10 @@ and values as its cache, as the reference does. ``models/model.py`` lays
 them out as a ring that decode can trust at every prompt length.
 ``attn_moe`` is ``attn_mlp`` with ``moe.moe_block`` in place of the MLP:
 a global causal attention layer, whose forward also returns the block's
-load-balance loss (0 for every other kind).
+load-balance loss (0 for every kind without an MoE). ``mamba_mlp`` and
+``mamba_moe`` are ``mamba.mamba_block`` followed by the MLP or the MoE;
+their cache is the block's state ``{"conv", "ssm"}``. The hybrid family
+(jamba) applies no RoPE in its attention layers, as in the reference.
 
 The reference stacks each cycle position's parameters along a leading
 axis and runs the stack under ``jax.lax.scan``; the port keeps one
@@ -28,20 +33,24 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from . import layers as L
+from . import mamba as M
 from . import moe as MOE
 from . import rwkv as R
 
-PORTED_KINDS = ("attn_mlp", "swa_mlp", "attn_moe", "rwkv")
+PORTED_KINDS = ("attn_mlp", "swa_mlp", "attn_moe", "rwkv", "mamba_mlp",
+                "mamba_moe")
 ATTENTION_KINDS = ("attn_mlp", "swa_mlp", "attn_moe")
+MAMBA_KINDS = ("mamba_mlp", "mamba_moe")
+MOE_KINDS = ("attn_moe", "mamba_moe")
 # the attention kinds whose cache holds every position (no window)
 GLOBAL_KINDS = ("attn_mlp", "attn_moe")
 
 
 def _not_ported(kind):
     return NotImplementedError(
-        f"layer kind {kind!r} is not ported yet (ROADMAP Queue A item 11: "
-        f"mamba_mlp and mamba_moe in 11d, cross_mlp and enc_mlp in 11e; "
-        f"the port serves the kinds {PORTED_KINDS})")
+        f"layer kind {kind!r} is not ported yet (ROADMAP Queue A item "
+        f"11e: cross_mlp and enc_mlp; the port serves the kinds "
+        f"{PORTED_KINDS})")
 
 
 # ---------------------------------------------------------------------------
@@ -49,12 +58,14 @@ def _not_ported(kind):
 # ---------------------------------------------------------------------------
 
 def layer_init(kind, gen, cfg, dtype):
-    if kind in ATTENTION_KINDS:
+    if kind in ATTENTION_KINDS or kind in MAMBA_KINDS:
         dev = gen.device
-        out = {"norm1": L.rmsnorm_init(cfg.d_model, dtype, dev),
-               "attn": L.attention_init(gen, cfg, dtype),
+        mixer = ({"attn": L.attention_init(gen, cfg, dtype)}
+                 if kind in ATTENTION_KINDS
+                 else {"mamba": M.mamba_init(gen, cfg, dtype)})
+        out = {"norm1": L.rmsnorm_init(cfg.d_model, dtype, dev), **mixer,
                "norm2": L.rmsnorm_init(cfg.d_model, dtype, dev)}
-        if kind == "attn_moe":
+        if kind in MOE_KINDS:
             out["moe"] = MOE.moe_init(gen, cfg, dtype)
         else:
             out["mlp"] = L.mlp_init(gen, cfg.d_model, cfg.d_ff, dtype)
@@ -68,9 +79,15 @@ def _ffn(kind, params, cfg, x):
     """The layer's second half on ``x``: (output, load-balance loss or
     None)."""
     h = L.rmsnorm(params["norm2"], x)
-    if kind == "attn_moe":
+    if kind in MOE_KINDS:
         return MOE.moe_block(params["moe"], cfg, h)
     return L.mlp(params["mlp"], h), None
+
+
+def _use_rope(cfg) -> bool:
+    """The reference's switch: the hybrid family's attention has no
+    RoPE (its Mamba layers carry the positions)."""
+    return cfg.family != "hybrid"
 
 
 def layer_forward(kind, params, cfg, x, want_cache=False):
@@ -82,7 +99,7 @@ def layer_forward(kind, params, cfg, x, want_cache=False):
         window = cfg.window if kind == "swa_mlp" else 0
         h, k, v = L.full_seq_attention(
             params["attn"], cfg, L.rmsnorm(params["norm1"], x), causal=True,
-            window=window)
+            window=window, use_rope=_use_rope(cfg))
         x = x + h
         cache = None
         if want_cache:
@@ -99,6 +116,12 @@ def layer_forward(kind, params, cfg, x, want_cache=False):
     if kind == "rwkv":
         x, state = R.rwkv_block(params, cfg, x)
         return x, (state if want_cache else None), None
+    if kind in MAMBA_KINDS:
+        h, state = M.mamba_block(params["mamba"], cfg,
+                                 L.rmsnorm(params["norm1"], x))
+        x = x + h
+        h, aux = _ffn(kind, params, cfg, x)
+        return x + h, (state if want_cache else None), aux
     raise _not_ported(kind)
 
 
@@ -106,12 +129,20 @@ def layer_decode(kind, params, cfg, x, cache, pos):
     """Single-token decode. x: (B, 1, d). Returns (x, new_cache)."""
     if kind in ATTENTION_KINDS:
         h, new_cache = L.decode_attention(
-            params["attn"], cfg, L.rmsnorm(params["norm1"], x), cache, pos)
+            params["attn"], cfg, L.rmsnorm(params["norm1"], x), cache, pos,
+            use_rope=_use_rope(cfg))
         x = x + h
         h, _ = _ffn(kind, params, cfg, x)
         return x + h, new_cache
     if kind == "rwkv":
         return R.rwkv_block(params, cfg, x, state=cache, single_step=True)
+    if kind in MAMBA_KINDS:
+        h, state = M.mamba_block(params["mamba"], cfg,
+                                 L.rmsnorm(params["norm1"], x), state=cache,
+                                 single_step=True)
+        x = x + h
+        h, _ = _ffn(kind, params, cfg, x)
+        return x + h, state
     raise _not_ported(kind)
 
 

@@ -81,3 +81,39 @@ def to_torch(tree):
 def state_to_torch(state):
     """``interop.state_to_torch`` onto the CPU."""
     return interop.state_to_torch(state, device="cpu")
+
+
+TOP_K_GAP = 1e-5
+
+
+def spy_reference_moe_gaps(monkeypatch) -> list:
+    """Wraps the reference's ``moe_block`` so that every call (eager, or
+    traced under ``jit``, ``lax.scan``, ``grad`` and ``vmap``) appends the
+    least gap between a token's k-th and (k+1)-th router probability, on
+    the reference's own probabilities, to the returned list. The top-k
+    selection turns a difference of one ulp into another expert, so a
+    parity test over an MoE asserts that every gap exceeds ``TOP_K_GAP``
+    (``tests/test_torch_moe.py``)."""
+    import jax.numpy as jnp
+    from repro.models import moe as JMOE
+    gaps = []
+    orig = JMOE.moe_block
+
+    def record(gap):
+        gaps.append(float(np.min(np.asarray(gap))))
+
+    def spy(params, cfg, x, *args, **kwargs):
+        probs = jax.nn.softmax(x.astype(jnp.float32) @ params["router"], -1)
+        top = jax.lax.top_k(probs, cfg.top_k + 1)[0]
+        jax.debug.callback(record, jnp.min(top[..., -2] - top[..., -1]))
+        return orig(params, cfg, x, *args, **kwargs)
+
+    monkeypatch.setattr(JMOE, "moe_block", spy)
+    return gaps
+
+
+def assert_gaps(gaps, n_calls: int = 1) -> None:
+    """At least ``n_calls`` MoE calls were seen, each with its least top-k
+    gap over ``TOP_K_GAP``."""
+    assert len(gaps) >= n_calls, gaps
+    assert min(gaps) > TOP_K_GAP, min(gaps)

@@ -2,8 +2,10 @@
 their plain PyTorch versions, on the card, and the serve paths that run
 them (each arch's smoke preset; gemma3-12b at full width, one cycle of
 six layers and, through the example, all 48), flash at qwen3-moe's GQA
-group of 16, and the MoE block and a reduced qwen3-moe prefill on the
-card against the CPU. Every test here is marked
+group of 16, the MoE block and a reduced qwen3-moe prefill on the
+card against the CPU, and the Mamba block (its plain scan: prefill,
+decode, gradients) and a reduced jamba prefill on the card against the
+CPU. Every test here is marked
 ``cuda`` and
 skips without a CUDA device; the module imports no JAX, so it also runs
 on a machine without it:
@@ -181,23 +183,26 @@ def test_launch_counters_move():
 
 @pytest.mark.parametrize("arch", ["rwkv6-3b", "phi3-medium-14b",
                                   "gemma3-12b", "qwen3-moe-235b-a22b",
-                                  "llama4-maverick-400b-a17b"])
+                                  "llama4-maverick-400b-a17b",
+                                  "jamba-1.5-large-398b"])
 def test_serve_smoke_preset(arch):
     """The port's default serve command (``--preset smoke``, the reduced
-    float32 config: rwkv6's head dim 16, phi3's and gemma3's 32) on the
-    card through
+    float32 config: rwkv6's head dim 16, phi3's and gemma3's 32; jamba's
+    [mamba_mlp, attn_moe]) on the card through
     ``launch/serve.py``: ids in [0, vocab), finite logits, and one kernel
-    launch per layer in the one prefill."""
+    launch per rwkv or attention layer in the one prefill."""
     from repro_torch import configs
     from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
 
     _cuda()
     cfg = configs.get(arch).reduced()
     counter, key = ((trs.LAUNCHES, "rwkv_scan") if cfg.family == "ssm"
                     else (tfa.LAUNCHES, "flash_attention"))
+    kinds = ("rwkv",) if cfg.family == "ssm" else T.ATTENTION_KINDS
     counter[key] = 0
     toks, info = serve.main(["--arch", arch, "--device", "cuda"])
-    assert counter[key] == cfg.n_layers
+    assert counter[key] == sum(k in kinds for k in T.layer_pattern(cfg))
     assert info["logits_finite"]
     assert bool(((toks >= 0) & (toks < cfg.vocab)).all())
 
@@ -357,3 +362,72 @@ def test_router_stays_float32_under_tf32():
     assert torch.equal(eid.cpu(), eid_cpu) and torch.equal(pos.cpu(),
                                                             pos_cpu)
     torch.testing.assert_close(probs.cpu(), want, rtol=1e-5, atol=1e-7)
+
+
+def test_mamba_block_card_matches_cpu():
+    """jamba's reduced Mamba block (float32) on the card against the CPU
+    from the same weights: a prefill longer than two scan chunks, its
+    state, a decode step from it, and the gradients of a mean scalar by
+    x and every leaf, within 1e-4 of each output's largest entry."""
+    from repro_torch import configs
+    from repro_torch.models import mamba
+    from repro_torch.tree import tree_leaves, tree_map
+    dev = _cuda()
+    cfg = configs.get("jamba-1.5-large-398b").reduced()
+    params = mamba.mamba_init(torch.Generator().manual_seed(3), cfg,
+                              torch.float32)
+    S = 2 * mamba.CHUNK + 5
+    x = _normal((2, S + 1, cfg.d_model), 11, torch.float32, "cpu")
+    r = _normal((2, S, cfg.d_model), 12, torch.float32, "cpu")
+    outs = []
+    for device in ("cpu", dev):
+        p = tree_map(lambda t: t.to(device).requires_grad_(), params)
+        xx = x.to(device).requires_grad_()
+        y, state = mamba.mamba_block(p, cfg, xx[:, :S])
+        grads = torch.autograd.grad((y * r.to(device)).mean(),
+                                    tree_leaves(p) + [xx])
+        with torch.no_grad():
+            step, new = mamba.mamba_block(p, cfg, xx[:, S:], state=state,
+                                          single_step=True)
+        outs.append([y, state["conv"], state["ssm"], step, new["conv"],
+                     new["ssm"], *grads])
+    for i, (want, got) in enumerate(zip(*outs)):
+        err = float((got.detach().cpu() - want.detach()).abs().max())
+        assert err <= 1e-4 * float(want.abs().max()) + 1e-6, (i, err)
+
+
+def test_jamba_two_layer_prefill_card_matches_cpu():
+    """The reduced jamba ([mamba_mlp, attn_moe], float32, no RoPE)
+    prefilled on the card and on the CPU from the same weights and
+    tokens: logits and caches (the Mamba state and the attention cache)
+    within 1e-4, one flash launch in the prefill, and one decode step."""
+    from repro_torch import configs
+    from repro_torch.models.model import build_model, make_batch
+    from repro_torch.tree import tree_map
+    dev = _cuda()
+    cfg = configs.get("jamba-1.5-large-398b").reduced()
+    cpu = build_model(cfg, device="cpu")
+    gen = torch.Generator().manual_seed(1)
+    params = cpu.init(gen)
+    batch = make_batch(gen, cfg, 2, 96)
+    want, want_cache = cpu.prefill(params, batch, cache_len=100)
+    want_cache = tree_map(torch.clone, want_cache)
+    tok = want[..., :cfg.vocab].argmax(-1)
+    # decode writes its slot into the cache it is given
+    want_step, _ = cpu.decode(params, tree_map(torch.clone, want_cache),
+                              tok, 96)
+    card = build_model(cfg, device=dev)
+    tfa.LAUNCHES["flash_attention"] = 0
+    params = params.to(dev)                 # the module moves in place
+    got, got_cache = card.prefill(params, tree_map(
+        lambda t: t.to(dev), batch), cache_len=100)
+    assert tfa.LAUNCHES["flash_attention"] == 1
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    for a, b in zip(got_cache, want_cache):
+        assert sorted(a) == sorted(b)
+        for key in b:
+            torch.testing.assert_close(a[key].cpu(), b[key], rtol=1e-4,
+                                       atol=1e-4)
+    got_step, _ = card.decode(params, got_cache, tok.to(dev), 96)
+    torch.testing.assert_close(got_step.cpu(), want_step, rtol=1e-4,
+                               atol=1e-4)

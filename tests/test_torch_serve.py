@@ -1,8 +1,12 @@
 """The port's serving path against the JAX package on the CPU.
 
 For the two architectures of the reference's fast tier (phi3-medium-14b,
-dense GQA; rwkv6-3b, RWKV6) and the two MoE archs (qwen3-moe-235b-a22b,
-llama4-maverick-400b-a17b), reduced (2 layers, d_model 128, float32): the
+dense GQA; rwkv6-3b, RWKV6), the two MoE archs (qwen3-moe-235b-a22b,
+llama4-maverick-400b-a17b) and the hybrid (jamba-1.5-large-398b, at its
+reduced pattern [mamba_mlp, attn_moe] and at the four-layer pattern
+[mamba_mlp, mamba_moe, mamba_mlp, attn_moe] of ``attn_every=4``; every
+input asserts the reference's top-k gap at each MoE call), reduced (2
+layers, d_model 128, float32): the
 JAX ``model.init(PRNGKey(0))`` weights are carried across with
 ``interop.model_params_to_torch`` and both models get the same numpy
 tokens. Compared: the prefill's last logits and its caches, four greedy
@@ -31,7 +35,8 @@ from repro_torch import interop
 from repro_torch.launch import serve as tserve
 from repro_torch.models.model import build_model as t_build, make_batch
 
-from _torch_parity import assert_bits_equal, np_of
+from _torch_parity import (assert_bits_equal, assert_gaps, np_of,
+                           spy_reference_moe_gaps)
 
 ROOT = Path(__file__).resolve().parents[1]
 # float32 through two layers: the sums run in another order (XLA vs ATen)
@@ -66,10 +71,18 @@ def _f32(x):
         else np.asarray(x, np.float32)
 
 
-def _stacked(caches):
-    """The port's per-layer caches stacked like the reference's (one cycle
-    position, a leading layer axis)."""
-    return {k: torch.stack([c[k] for c in caches]) for k in caches[0]}
+JAMBA = "jamba-1.5-large-398b"
+# the hybrid patterns: jamba's reduced() ([mamba_mlp, attn_moe]) and layers
+# 4-7 of its first period ([mamba_mlp, mamba_moe, mamba_mlp, attn_moe])
+HYBRID = {"reduced": {}, "four-layer": dict(n_layers=4, attn_every=4)}
+
+
+def _stacked(caches, cycle=1):
+    """The port's per-layer caches stacked like the reference's: one tree
+    per cycle position, each with a leading axis over the cycle's
+    blocks."""
+    return [{k: torch.stack([c[k] for c in caches[pos::cycle]])
+             for k in caches[pos]} for pos in range(cycle)]
 
 
 def _bits16(x):
@@ -84,7 +97,22 @@ def _bits16(x):
                                           ("qwen3-moe-235b-a22b", "int8"),
                                           ("llama4-maverick-400b-a17b", "")])
 def test_prefill_and_greedy_decode_match(aid, kv_dtype):
-    jmodel, jparams, _, tmodel, tparams = _pair(aid, kv_dtype=kv_dtype)
+    _check_prefill_and_decode(aid, kv_dtype=kv_dtype)
+
+
+@pytest.mark.parametrize("kv_dtype", ["", "int8"])
+@pytest.mark.parametrize("pattern", sorted(HYBRID))
+def test_hybrid_prefill_and_greedy_decode_match(monkeypatch, pattern,
+                                                kv_dtype):
+    """jamba: the Mamba layers' states (conv, ssm) beside the attention
+    caches, no RoPE, the MoE every other layer."""
+    gaps = spy_reference_moe_gaps(monkeypatch)
+    _check_prefill_and_decode(JAMBA, kv_dtype=kv_dtype, **HYBRID[pattern])
+    assert_gaps(gaps, 1 + NEW)
+
+
+def _check_prefill_and_decode(aid, **changes):
+    jmodel, jparams, _, tmodel, tparams = _pair(aid, **changes)
     toks = _tokens(jmodel.cfg.vocab)
     cache_len = S + NEW
     jprefill = jax.jit(jmodel.prefill, static_argnames=("cache_len",))
@@ -94,21 +122,21 @@ def test_prefill_and_greedy_decode_match(aid, kv_dtype):
     tlogits, tcache = tmodel.prefill(tparams, {"tokens": torch.tensor(toks)},
                                      cache_len=cache_len)
     np.testing.assert_allclose(np_of(tlogits), np.asarray(jlogits), **F32_TOL)
-    assert len(jcache) == 1                     # one cycle position
-    stacked = _stacked(tcache)
-    assert sorted(stacked) == sorted(jcache[0])
-    for key, want in jcache[0].items():
-        got, want = stacked[key], np.asarray(want)
-        assert tuple(got.shape) == want.shape, key
-        if key in ("k_scale", "v_scale"):
-            # bf16 scales of K/V that agree to float32 rounding: within
-            # one bf16 step
-            np.testing.assert_allclose(_f32(got), want.astype(np.float32),
-                                       rtol=1e-2)
-        elif got.dtype == torch.int8:
-            assert np.abs(np_of(got).astype(int) - want).max() <= 1, key
-        else:
-            np.testing.assert_allclose(np_of(got), want, **F32_TOL)
+    cycle = len(jcache)                         # one tree a cycle position
+    for stacked, jpos in zip(_stacked(tcache, cycle), jcache):
+        assert sorted(stacked) == sorted(jpos)
+        for key, want in jpos.items():
+            got, want = stacked[key], np.asarray(want)
+            assert tuple(got.shape) == want.shape, key
+            if key in ("k_scale", "v_scale"):
+                # bf16 scales of K/V that agree to float32 rounding: within
+                # one bf16 step
+                np.testing.assert_allclose(_f32(got),
+                                           want.astype(np.float32), rtol=1e-2)
+            elif got.dtype == torch.int8:
+                assert np.abs(np_of(got).astype(int) - want).max() <= 1, key
+            else:
+                np.testing.assert_allclose(np_of(got), want, **F32_TOL)
 
     vocab = jmodel.cfg.vocab
     jtok = jnp.argmax(jlogits[..., :vocab], axis=-1).astype(jnp.int32)
@@ -125,7 +153,7 @@ def test_prefill_and_greedy_decode_match(aid, kv_dtype):
 
 
 @pytest.mark.parametrize("aid", ["phi3-medium-14b", "rwkv6-3b",
-                                 "qwen3-moe-235b-a22b"])
+                                 "qwen3-moe-235b-a22b", JAMBA])
 def test_bfloat16_weights_cross_bit_for_bit(aid):
     jmodel, jparams, np_params, tmodel, tparams = _pair(aid,
                                                         dtype="bfloat16")
@@ -134,13 +162,15 @@ def test_bfloat16_weights_cross_bit_for_bit(aid):
     assert tparams["embedding"]["embed"].dtype == torch.bfloat16
     assert_bits_equal(_bits16(tparams["embedding"]["embed"]), _bits16(emb))
     n_layers = jmodel.cfg.n_layers
+    cycle = len(np_params["stack"])
     for i in range(n_layers):
         layer = tparams["layers"][i]
         for name, param in layer.named_parameters():
-            node = np_params["stack"][0]
+            node = np_params["stack"][i % cycle]
             for part in name.split("."):
                 node = node[part]
-            assert_bits_equal(_bits16(param), _bits16(node[i]), name)
+            assert_bits_equal(_bits16(param), _bits16(node[i // cycle]),
+                              name)
     toks = _tokens(jmodel.cfg.vocab, seed=1)
     jlogits, _ = jmodel.prefill(jparams, {"tokens": jnp.asarray(toks)})
     tlogits, _ = tmodel.prefill(tparams, {"tokens": torch.tensor(toks)})
@@ -201,6 +231,24 @@ def test_decode_consistency_moe(aid):
     np.testing.assert_allclose(np_of(logits), np_of(want), **CONSISTENCY_TOL)
 
 
+@pytest.mark.parametrize("pattern", sorted(HYBRID))
+def test_decode_consistency_hybrid(pattern):
+    """jamba as ``test_decode_consistency_moe``, at both hybrid patterns and
+    at an odd prompt (the Mamba state carry is exact)."""
+    n_experts = TCFG.get(JAMBA).reduced().n_experts
+    model, params, batch = _port(JAMBA, capacity_factor=float(n_experts),
+                                 **HYBRID[pattern])
+    toks = batch["tokens"]
+    for prompt in (S, S - 3):
+        _, cache = model.prefill(params, {"tokens": toks[:, :prompt]},
+                                 cache_len=S + 8)
+        logits, _ = model.decode(params, cache,
+                                 toks[:, prompt:prompt + 1], prompt)
+        want, _ = model.prefill(params, {"tokens": toks[:, :prompt + 1]})
+        np.testing.assert_allclose(np_of(logits), np_of(want),
+                                   **CONSISTENCY_TOL)
+
+
 def test_ring_buffer_wraps():
     """Past the cache's end the slot is pos % S_cache and every slot is
     valid: a cache of S slots decodes position S into slot 0."""
@@ -214,19 +262,23 @@ def test_ring_buffer_wraps():
 
 
 def test_init_cache_matches_prefill_layout():
-    for aid in ("phi3-medium-14b", "rwkv6-3b", "qwen3-moe-235b-a22b"):
-        model, params, batch = _port(aid)
+    for aid, changes in (("phi3-medium-14b", {}), ("rwkv6-3b", {}),
+                         ("qwen3-moe-235b-a22b", {}),
+                         *((JAMBA, c) for c in HYBRID.values())):
+        model, params, batch = _port(aid, **changes)
         _, cache = model.prefill(params, {"tokens": batch["tokens"]},
                                  cache_len=S + 3)
         zero = model.init_cache(B, S + 3)
+        assert len(cache) == len(zero) == model.cfg.n_layers
         for got, want in zip(cache, zero):
             assert {k: (v.shape, v.dtype) for k, v in got.items()} == \
                 {k: (v.shape, v.dtype) for k, v in want.items()}
 
 
 def test_unported_families_raise():
-    with pytest.raises(NotImplementedError, match="Queue A item 11"):
-        t_build(TCFG.get("jamba-1.5-large-398b").reduced(), device="cpu")
+    for aid in ("whisper-base", "internvl2-26b"):
+        with pytest.raises(NotImplementedError, match="Queue A item 11"):
+            t_build(TCFG.get(aid).reduced(), device="cpu")
 
 
 def test_entry_points_default_to_the_gpu():
@@ -254,7 +306,7 @@ def test_serve_function_and_int8_kv():
 
 def test_serve_cli_runs_on_the_cpu():
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    for arch in ("phi3-medium-14b", "rwkv6-3b"):
+    for arch in ("phi3-medium-14b", "rwkv6-3b", JAMBA):
         out = subprocess.run(
             [sys.executable, "-m", "repro_torch.launch.serve", "--device",
              "cpu", "--arch", arch, "--batch", "2", "--prompt-len", "8",

@@ -40,10 +40,15 @@ from repro_torch.models.model import build_model as t_build
 from repro_torch.tree import (tree_flatten, tree_leaves, tree_map,
                               tree_unflatten)
 
-from _torch_parity import assert_tree_close, client_seeds
+from _torch_parity import (assert_gaps, assert_tree_close, client_seeds,
+                           spy_reference_moe_gaps)
 
 ARCHS = ["phi3-medium-14b", "gemma3-12b", "rwkv6-3b"]
 N_CLIENTS, B_LOCAL, SEQ = 4, 2, 24
+JAMBA = "jamba-1.5-large-398b"
+# the hybrid patterns: jamba's reduced() ([mamba_mlp, attn_moe]) and layers
+# 4-7 of its first period ([mamba_mlp, mamba_moe, mamba_mlp, attn_moe])
+HYBRID = {"reduced": {}, "four-layer": dict(n_layers=4, attn_every=4)}
 
 
 def _configs(arch, **kw):
@@ -141,12 +146,36 @@ def test_loss_fn_value_and_grad_match_reference(arch, S):
     _grad_close(back, jg, msg=arch)
 
 
+@pytest.mark.parametrize("pattern", sorted(HYBRID))
+def test_hybrid_loss_fn_value_and_grad_match_reference(monkeypatch,
+                                                       pattern):
+    """jamba's ``loss_fn`` and its gradient (every Mamba leaf, ``A_log``
+    in float32 among them) against ``jax.value_and_grad``, at an odd
+    sequence length (the reference scans in chunks of 1 there), with the
+    reference's top-k gap asserted at each MoE call."""
+    gaps = spy_reference_moe_gaps(monkeypatch)
+    jm, tm, jp, tp = _models(JAMBA, **HYBRID[pattern])
+    jb, tb = _batches(_tokens((2, 25 + 1), jm.cfg.vocab, 4))
+    jl, jg = jax.value_and_grad(jm.loss_fn)(jp, jb)
+    assert_gaps(gaps)
+    leaves, treedef = tree_flatten(tp)
+    live = [x.clone().requires_grad_() for x in leaves]
+    tl = tm.loss_fn(tree_unflatten(treedef, live), tb)
+    grads = torch.autograd.grad(tl, live)
+    assert abs(float(tl) - float(jl)) <= 1e-5 * abs(float(jl))
+    back = interop.model_params_to_numpy(
+        tm.cfg, tree_unflatten(treedef, list(grads)))
+    assert jax.tree.structure(back) == jax.tree.structure(
+        jax.tree.map(np.asarray, jg))
+    _grad_close(back, jg, msg=pattern)
+
+
 # ---------------------------------------------------------------------------
 # interop round trips
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("arch", ["gemma3-12b", "rwkv6-3b",
-                                  "qwen3-moe-235b-a22b"])
+                                  "qwen3-moe-235b-a22b", JAMBA])
 def test_model_params_round_trip(arch):
     jcfg, tcfg = _configs(arch, n_layers=4)
     jp = jax.tree.map(np.asarray, j_build(jcfg).init(jax.random.PRNGKey(1)))
@@ -235,8 +264,8 @@ def test_token_stream_draws_follow_the_logits():
 # the trainer
 # ---------------------------------------------------------------------------
 
-def _trainer_pair(arch, **fkw):
-    jm, tm, jp, tp = _models(arch)
+def _trainer_pair(arch, model_kw=None, **fkw):
+    jm, tm, jp, tp = _models(arch, **(model_kw or {}))
     jf = JFT.FedLMConfig(n_clients=N_CLIENTS, rho=0.05, client_mode="logical",
                          **fkw)
     tf = TFT.FedLMConfig(n_clients=N_CLIENTS, rho=0.05, client_mode="logical",
@@ -285,6 +314,34 @@ def test_train_step_identity_matches_reference(arch):
         assert_tree_close(ts.v, want.v, msg=f"v round {t}")
         assert_tree_close(ts.v_i, want.v_i, msg=f"v_i round {t}")
     assert int(ts.step) == 3
+
+
+@pytest.mark.parametrize("pattern", sorted(HYBRID))
+def test_hybrid_train_step_matches_reference(monkeypatch, pattern):
+    """jamba: two rounds with the identity compressor and control
+    variates, the reference's draws handed over, and the reference's
+    top-k gap asserted at each MoE call of its clients."""
+    gaps = spy_reference_moe_gaps(monkeypatch)
+    jm, tm, jf, tf, js = _trainer_pair(JAMBA, HYBRID[pattern], quant_bits=0)
+    ts = _to_port_state(tm.cfg, js)
+    jstep = jax.jit(JFT.make_train_step(jm, jf))
+    tstep = TFT.make_train_step(tm, tf)
+    n_leaves = _n_leaves(ts.s_hat)
+    for t in range(2):
+        k = jax.random.PRNGKey(40 + t)
+        gamma = 0.5 / (1.0 + t) ** 0.5
+        jb, tb = _round_batches(t, jm.cfg.vocab)
+        js, jmet = jstep(js, jb, k, gamma)
+        active, qkeys = japi.participation_draw(k, jf.federation_spec())
+        ts, tmet = tstep(ts, tb, None, gamma, active=np.asarray(active),
+                         seeds=client_seeds(qkeys, n_leaves))
+        assert abs(float(tmet["loss"]) - float(jmet["loss"])) <= \
+            1e-5 * abs(float(jmet["loss"])), t
+        want = _to_port_state(tm.cfg, js)
+        assert_tree_close(ts.s_hat, want.s_hat, msg=f"s_hat round {t}")
+        assert_tree_close(ts.v, want.v, msg=f"v round {t}")
+        assert_tree_close(ts.v_i, want.v_i, msg=f"v_i round {t}")
+    assert_gaps(gaps)
 
 
 def _level_bound(problem, tf, ts, tb, block=256):
