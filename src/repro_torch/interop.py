@@ -84,36 +84,57 @@ def model_params_to_torch(cfg, np_params, device=None) -> Params:
     ``device`` (the GPU unless asked otherwise). The reference stacks each
     cycle position's layers along a leading axis (``params["stack"]``, one
     tree per position); the port keeps one tree per layer, so layer ``i``
-    is block ``i // c`` of position ``i % c`` for a cycle of ``c``."""
+    is block ``i // c`` of position ``i % c`` for a cycle of ``c``. The
+    audio family's encoder (``"encoder"``, one cycle position over its
+    ``n_encoder_layers``) becomes one tree per encoder layer, and
+    ``"enc_norm"`` crosses as it is."""
     return Params(to_torch(_unstack(cfg, np_params), resolve_device(device)))
 
 
-def _unstack(cfg, tree, lead: int = 0):
-    """The reference's layout (``tree["stack"]``: one tree per cycle
-    position, each leaf's axis ``lead`` over the cycle's blocks) -> the
-    port's (``"layers"``: one tree per layer)."""
-    pattern = T.layer_pattern(cfg)
+# the trees beside the layer stack that cross as they are
+_WHOLE = ("embedding", "final_norm", "enc_norm")
+
+
+def _unstack_layers(stack, pattern, lead: int):
     c = T._cycle(pattern)
-    stack = tree["stack"]
     index = (slice(None),) * lead
-    layers = [tree_map(lambda a, i=i: a[index + (i // c,)], stack[i % c])
-              for i in range(len(pattern))]
-    return {"embedding": tree["embedding"], "layers": layers,
-            "final_norm": tree["final_norm"]}
+    return [tree_map(lambda a, i=i: a[index + (i // c,)], stack[i % c])
+            for i in range(len(pattern))]
+
+
+def _stack_layers(layers, pattern):
+    c = T._cycle(pattern)
+    return tuple(tree_map(lambda *xs: np.stack(xs), *layers[pos::c])
+                 for pos in range(c))
+
+
+def _unstack(cfg, tree, lead: int = 0):
+    """The reference's layout (``tree["stack"]`` and, for audio,
+    ``tree["encoder"]``: one tree per cycle position, each leaf's axis
+    ``lead`` over the cycle's blocks) -> the port's (``"layers"`` and
+    ``"encoder"``: one tree per layer)."""
+    out = {key: tree[key] for key in _WHOLE if key in tree}
+    out["layers"] = _unstack_layers(tree["stack"], T.layer_pattern(cfg),
+                                    lead)
+    if "encoder" in tree:
+        out["encoder"] = _unstack_layers(tree["encoder"], ["enc_mlp"] *
+                                         cfg.n_encoder_layers, lead)
+    return out
 
 
 def model_params_to_numpy(cfg, params) -> dict:
     """The port's per-layer tree (a ``Params`` module, or a plain tree such
     as the trainer's iterate or the gradients of ``loss_fn``) -> the
     reference's layout with numpy leaves: ``"stack"`` a tuple of one tree
-    per cycle position, each leaf stacked over the cycle's blocks."""
+    per cycle position, each leaf stacked over the cycle's blocks (and
+    audio's ``"encoder"`` as one position over its layers)."""
     tree = to_numpy(params_tree(params))
-    c = T._cycle(T.layer_pattern(cfg))
-    layers = tree["layers"]
-    stack = tuple(tree_map(lambda *xs: np.stack(xs), *layers[pos::c])
-                  for pos in range(c))
-    return {"embedding": tree["embedding"], "stack": stack,
-            "final_norm": tree["final_norm"]}
+    out = {key: tree[key] for key in _WHOLE if key in tree}
+    out["stack"] = _stack_layers(tree["layers"], T.layer_pattern(cfg))
+    if "encoder" in tree:
+        out["encoder"] = _stack_layers(tree["encoder"], ["enc_mlp"] *
+                                       cfg.n_encoder_layers)
+    return out
 
 
 def fedlm_state_to_torch(cfg, state, device=None) -> FedLMState:

@@ -7,6 +7,10 @@ a batch of prompts, then greedy-decode with the ring-buffer KV cache
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu   # reduced
 
 The default device is the GPU; the CPU only when asked (``--device cpu``).
+A request of the families audio and vlm carries its frontend (``make_batch``'s
+stub frames or patches); vlm's patches take the first
+``n_frontend_tokens`` positions of the cache, so the cache is that much
+longer and every decode position is offset by it, as in the reference.
 """
 from __future__ import annotations
 
@@ -17,7 +21,7 @@ import time
 import torch
 
 from .. import configs as C
-from ..models.model import build_model, make_batch
+from ..models.model import build_model, make_batch, n_prefix
 
 
 def _sync(device: torch.device) -> None:
@@ -27,20 +31,22 @@ def _sync(device: torch.device) -> None:
 
 @torch.inference_mode()
 def serve(model, params, batch, new_tokens: int):
-    """Prefill ``batch["tokens"]`` (B, S), then ``new_tokens - 1`` greedy
-    decode steps. Returns ``(tokens (B, new_tokens), info)``; ``info``
+    """Prefill ``batch["tokens"]`` (B, S) with its frontend, if any, then
+    ``new_tokens - 1`` greedy decode steps, at positions past vlm's
+    patches. Returns ``(tokens (B, new_tokens), info)``; ``info``
     holds the prefill seconds, the decode seconds per token and whether
     every logit over the real vocab was finite. Times are host clock
     around work that ends in a device synchronise."""
     cfg, dev = model.cfg, model.device
     vocab = cfg.vocab
-    prompt_len = batch["tokens"].shape[1]
+    # the first decode position: vlm's patches, then the prompt
+    start = n_prefix(cfg) + batch["tokens"].shape[1]
     finite = torch.ones((), dtype=torch.bool, device=dev)
 
     _sync(dev)
     t0 = time.perf_counter()
     logits, cache = model.prefill(params, batch,
-                                  cache_len=prompt_len + new_tokens)
+                                  cache_len=start + new_tokens)
     finite &= torch.isfinite(logits[..., :vocab]).all()
     tok = torch.argmax(logits[..., :vocab], dim=-1)
     _sync(dev)
@@ -49,7 +55,7 @@ def serve(model, params, batch, new_tokens: int):
     out = [tok]
     t0 = time.perf_counter()
     for i in range(new_tokens - 1):
-        logits, cache = model.decode(params, cache, tok, prompt_len + i)
+        logits, cache = model.decode(params, cache, tok, start + i)
         finite &= torch.isfinite(logits[..., :vocab]).all()
         tok = torch.argmax(logits[..., :vocab], dim=-1)
         out.append(tok)

@@ -7,6 +7,7 @@ Weights are random, from a seed.
 
   python -m repro_torch.launch.train --arch gemma3-12b --preset 100m \
       --steps 20
+  python -m repro_torch.launch.train --arch whisper-base --preset 100m
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
       --preset smoke --steps 20
 
@@ -27,7 +28,7 @@ from .. import checkpoint as ckpt
 from .. import configs as C
 from ..data.synthetic import token_stream
 from ..fed import trainer as FT
-from ..models.model import build_model
+from ..models.model import FRONTEND_KEYS, build_model
 
 
 def preset_config(cfg, preset: str):
@@ -52,10 +53,18 @@ def sample_batch(gen: torch.Generator, cfg, n_clients: int, b_local: int,
     """{"tokens", "labels"}: (n_clients, b_local, seq) each. Every client
     draws its own ``token_stream`` with its local batch as the stream's
     row count (each row from its own band of the vocabulary), as the
-    reference's CLI does."""
+    reference's CLI does. vlm adds ``"patches"`` and audio ``"frames"``:
+    (n_clients, b_local, n_frontend_tokens, d_model) float32 N(0, 1) *
+    0.02, drawn after the tokens."""
     toks = torch.stack([token_stream(gen, b_local, seq + 1, cfg.vocab)
                         for _ in range(n_clients)]).to(device)
-    return {"tokens": toks[..., :-1], "labels": toks[..., 1:]}
+    batch = {"tokens": toks[..., :-1], "labels": toks[..., 1:]}
+    key = FRONTEND_KEYS.get(cfg.family)
+    if key:
+        batch[key] = torch.randn(
+            (n_clients, b_local, cfg.n_frontend_tokens, cfg.d_model),
+            generator=gen).mul_(0.02).to(device)
+    return batch
 
 
 def main(argv=None) -> dict:

@@ -1,11 +1,23 @@
 """Public model API (the port of ``repro/models/model.py``):
 ``build_model(cfg, device) -> Model(init, prefill, decode, init_cache,
 loss_fn)`` for the families ``dense`` (with gemma3's sliding-window
-layers), ``moe`` (``attn_moe`` layers: llama4, qwen3), ``ssm`` and
+layers), ``moe`` (``attn_moe`` layers: llama4, qwen3), ``ssm``,
 ``hybrid`` (jamba: ``mamba_mlp`` and ``mamba_moe`` layers, one
-``attn_moe`` or ``attn_mlp`` layer in ``attn_every``, no RoPE).
+``attn_moe`` or ``attn_mlp`` layer in ``attn_every``, no RoPE), ``audio``
+(whisper: ``cfg.n_encoder_layers`` ``enc_mlp`` layers and ``enc_norm``
+over the frames, then ``cross_mlp`` layers) and ``vlm`` (internvl:
+``attn_mlp`` layers over the patches followed by the tokens).
 
-Batch contract: {"tokens": (B, S) int64, "labels": (B, S) int64}.
+Batch contract: {"tokens": (B, S) int64, "labels": (B, S) int64};
+vlm adds {"patches": (B, P, d_model)} (stub ViT embeddings), audio
+{"frames": (B, F, d_model)} (stub mel + conv embeddings), both cast to
+the model dtype. vlm puts the patches before the token embeddings (early
+fusion): the sequence is causal over P + S positions, RoPE at 0 .. P + S
+- 1, and its caches hold P + S positions, so a decode step's position
+counts the patches (``launch.serve`` offsets by ``n_frontend_tokens``).
+audio encodes the frames once a forward (non-causal, RoPE on) and every
+``cross_mlp`` layer attends to that output; prefill's ``cache_len`` pads
+their self-attention ``k``/``v``, never the encoder's ``ek``/``ev``.
 
 Decode contract: the per-layer caches from ``prefill`` (or
 ``init_cache``), one token per sequence, the current position; returns
@@ -43,9 +55,15 @@ every layer rematerialised (``stack_forward(remat=True)``), plus ``0.01
 * aux``, the layers' summed mixture-of-experts balance loss (0 without
 an MoE), as in the reference. It takes a ``Params`` module or the plain
 tree of ``layers.params_tree`` whose leaves require gradients, and runs
-outside ``inference_mode``; ``prefill`` and ``decode`` keep theirs. The
-families audio and vlm are not ported yet (ROADMAP Queue A items
-11e-11f).
+outside ``inference_mode``; ``prefill`` and ``decode`` keep theirs. Under
+remat the encoder's layers are rematerialised too (the reference's
+encoder ``stack_forward`` takes its default ``remat=True``); the loss
+reads the positions past vlm's patches only.
+
+audio with ``kv_dtype="int8"`` raises ``NotImplementedError``: the
+reference's ``cross_mlp`` prefill keeps bf16 ``k``/``v`` where its decode
+reads int8 codes and scales, so its first decode step fails (ROADMAP
+Queue C item 7); the port adds no feature the reference lacks.
 """
 from __future__ import annotations
 
@@ -59,7 +77,9 @@ from ..configs.base import ArchConfig
 from . import layers as L
 from . import transformer as T
 
-SERVED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+SERVED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "audio", "vlm")
+# the batch key of each family's frontend embeddings
+FRONTEND_KEYS = {"vlm": "patches", "audio": "frames"}
 
 
 class Model(NamedTuple):
@@ -70,6 +90,12 @@ class Model(NamedTuple):
     decode: Callable          # (params, caches, token (B,1), pos) -> (logits, caches)
     init_cache: Callable      # (batch_size, seq_len) -> zero caches
     loss_fn: Callable         # (params, batch) -> mean xent + 0.01 aux
+
+
+def n_prefix(cfg: ArchConfig) -> int:
+    """The positions a request's frontend takes before its tokens: vlm's
+    patches, none for another family (audio's frames are the encoder's)."""
+    return cfg.n_frontend_tokens if cfg.family == "vlm" else 0
 
 
 def _dtype(cfg):
@@ -99,12 +125,18 @@ def build_model(cfg: ArchConfig, device=None) -> Model:
     """The model on ``device``: the GPU unless the caller asks for another
     (raises without one)."""
     if cfg.family not in SERVED_FAMILIES:
+        raise ValueError(f"family {cfg.family!r}: the port serves "
+                         f"{SERVED_FAMILIES}")
+    if cfg.family == "audio" and cfg.kv_dtype == "int8":
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (ROADMAP Queue A item "
-            f"11: the port serves {SERVED_FAMILIES})")
+            "audio with the int8 KV cache: the reference's cross_mlp prefill "
+            "keeps bf16 k/v that its int8 decode cannot read (ROADMAP Queue "
+            "C item 7)")
     dev = resolve_device(device)
     dtype = _dtype(cfg)
     pattern = T.layer_pattern(cfg)
+    enc_pattern = ["enc_mlp"] * cfg.n_encoder_layers
+    audio, vlm = cfg.family == "audio", cfg.family == "vlm"
 
     def init(gen: torch.Generator) -> L.Params:
         """Random weights from ``gen``, which must live on the model's
@@ -112,27 +144,47 @@ def build_model(cfg: ArchConfig, device=None) -> Model:
         if gen.device.type != dev.type:
             raise ValueError(f"the generator is on {gen.device}, the model "
                              f"on {dev}")
-        return L.Params({
+        tree = {
             "embedding": L.embedding_init(gen, cfg, dtype),
             "layers": T.stack_init(gen, cfg, dtype, pattern),
             "final_norm": L.rmsnorm_init(cfg.d_model, dtype, dev),
-        })
+        }
+        if audio:
+            tree["encoder"] = T.stack_init(gen, cfg, dtype, enc_pattern)
+            tree["enc_norm"] = L.rmsnorm_init(cfg.d_model, dtype, dev)
+        return L.Params(tree)
+
+    def _embed_inputs(params, batch, remat=False):
+        """Token embeddings and the frontend: (x, enc_out, the positions
+        of x before the tokens)."""
+        x = L.embed(params["embedding"], batch["tokens"]).to(dtype)
+        if vlm:
+            patches = batch["patches"].to(dtype)
+            return torch.cat([patches, x], dim=1), None, patches.shape[1]
+        if audio:
+            enc, _, _ = T.stack_forward(enc_pattern, params["encoder"], cfg,
+                                        batch["frames"].to(dtype),
+                                        remat=remat)
+            return x, L.rmsnorm(params["enc_norm"], enc), 0
+        return x, None, 0
 
     @torch.inference_mode()
     def prefill(params, batch, cache_len=None):
         """cache_len: optionally allocate full-attention caches longer than
         the prompt (extra slots are masked in decode via the slot<=pos
-        rule), and local rings of min(window, cache_len) slots."""
-        x = L.embed(params["embedding"], batch["tokens"]).to(dtype)
+        rule), and local rings of min(window, cache_len) slots. vlm's
+        prompt is its patches and tokens: count both in ``cache_len``."""
+        x, enc_out, _ = _embed_inputs(params, batch)
         x, caches, _ = T.stack_forward(pattern, params["layers"], cfg, x,
-                                       want_cache=True)
-        S = batch["tokens"].shape[1]
+                                       enc_out, want_cache=True)
+        S = x.shape[1]
         ring_len = min(cfg.window, max(S, cache_len or S))
         for i, kind in enumerate(pattern):
             cache = caches[i]
             if kind == "swa_mlp":
                 caches[i] = _ring(cache, S, ring_len)
-            elif kind in T.GLOBAL_KINDS and cache_len is not None:
+            elif (kind in T.GLOBAL_KINDS or kind == "cross_mlp") \
+                    and cache_len is not None:
                 n = cache_len - cache["k"].shape[1]
                 if n > 0:
                     for key in ("k", "v", "k_scale", "v_scale"):
@@ -144,12 +196,13 @@ def build_model(cfg: ArchConfig, device=None) -> Model:
 
     def loss_fn(params, batch):
         """Mean cross-entropy of ``batch["labels"]`` (B, S) given
-        ``batch["tokens"]`` (B, S), every layer under remat, plus 0.01
-        times the summed MoE balance loss."""
-        x = L.embed(params["embedding"], batch["tokens"]).to(dtype)
+        ``batch["tokens"]`` (B, S) and the frontend, every layer (the
+        encoder's too) under remat, plus 0.01 times the summed MoE balance
+        loss."""
+        x, enc_out, prefix = _embed_inputs(params, batch, remat=True)
         x, _, aux = T.stack_forward(pattern, params["layers"], cfg, x,
-                                    remat=True)
-        x = L.rmsnorm(params["final_norm"], x)
+                                    enc_out, remat=True)
+        x = L.rmsnorm(params["final_norm"], x)[:, prefix:]
         return L.chunked_softmax_xent(params["embedding"], x,
                                       batch["labels"], cfg) + 0.01 * aux
 
@@ -193,7 +246,12 @@ def build_model(cfg: ArchConfig, device=None) -> Model:
                 di = cfg.expand * cfg.d_model
                 return {"conv": zeros((B, cfg.d_conv - 1, di), dtype),
                         "ssm": zeros((B, di, cfg.d_state), torch.float32)}
-            raise T._not_ported(kind)
+            if kind == "cross_mlp":
+                n_enc = cfg.n_frontend_tokens
+                return {key: zeros((B, n, KV, hd), dtype)
+                        for key, n in (("k", seq_len), ("v", seq_len),
+                                       ("ek", n_enc), ("ev", n_enc))}
+            raise ValueError(kind)
 
         return [one(kind) for kind in pattern]
 
@@ -203,9 +261,18 @@ def build_model(cfg: ArchConfig, device=None) -> Model:
 
 def make_batch(gen: torch.Generator, cfg: ArchConfig, batch_size: int,
                seq_len: int):
-    """Random batch on ``gen``'s device (for smoke tests and serving)."""
+    """Random batch on ``gen``'s device (for smoke tests and serving):
+    tokens and labels, then for vlm ``"patches"`` and for audio
+    ``"frames"``, (B, n_frontend_tokens, d_model) float32 N(0, 1) * 0.02
+    drawn after them."""
     shape = (batch_size, seq_len)
-    return {"tokens": torch.randint(0, cfg.vocab, shape, generator=gen,
-                                    device=gen.device),
-            "labels": torch.randint(0, cfg.vocab, shape, generator=gen,
-                                    device=gen.device)}
+    batch = {"tokens": torch.randint(0, cfg.vocab, shape, generator=gen,
+                                     device=gen.device),
+             "labels": torch.randint(0, cfg.vocab, shape, generator=gen,
+                                     device=gen.device)}
+    key = FRONTEND_KEYS.get(cfg.family)
+    if key:
+        batch[key] = torch.randn(
+            (batch_size, cfg.n_frontend_tokens, cfg.d_model), generator=gen,
+            device=gen.device).mul_(0.02)
+    return batch

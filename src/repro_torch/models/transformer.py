@@ -8,8 +8,8 @@ Layer "kinds" (composable sublayer patterns):
   rwkv       RWKV6 time-mix + channel-mix               (rwkv6)
   mamba_mlp  Mamba SSM + MLP                            (jamba)
   mamba_moe  Mamba SSM + MoE                            (jamba)
-and, still to port (ROADMAP Queue A item 11e), cross_mlp (whisper
-decoder) and enc_mlp (whisper encoder).
+  cross_mlp  self-attn + cross-attn(enc) + MLP          (whisper decoder)
+  enc_mlp    bidirectional attention + MLP              (whisper encoder)
 
 ``swa_mlp`` has ``attn_mlp``'s parameters and decode; its prefill runs the
 flash kernel with ``window=cfg.window`` and keeps the last ``window`` keys
@@ -21,6 +21,17 @@ load-balance loss (0 for every kind without an MoE). ``mamba_mlp`` and
 ``mamba_moe`` are ``mamba.mamba_block`` followed by the MLP or the MoE;
 their cache is the block's state ``{"conv", "ssm"}``. The hybrid family
 (jamba) applies no RoPE in its attention layers, as in the reference.
+
+``enc_mlp`` has ``attn_mlp``'s parameters; its forward is non-causal
+(RoPE on, as in every family but hybrid) and keeps no cache.
+``cross_mlp`` adds ``norm_x`` and ``xattn`` to them: causal self-attention
+with RoPE, then cross attention from ``rmsnorm(norm_x, x)`` to the
+encoder's output ``enc_out`` (non-causal, RoPE on neither side), then the
+MLP: two flash launches a layer in a prefill. Its cache is ``{"k", "v",
+"ek", "ev"}``: the self-attention's keys and values and the encoder's
+cross keys and values, all in the model dtype. Its decode is
+``decode_attention`` over ``k``/``v`` and plain ``gqa_core`` over
+``ek``/``ev`` (no mask), which it hands on unchanged.
 
 The reference stacks each cycle position's parameters along a leading
 axis and runs the stack under ``jax.lax.scan``; the port keeps one
@@ -37,8 +48,6 @@ from . import mamba as M
 from . import moe as MOE
 from . import rwkv as R
 
-PORTED_KINDS = ("attn_mlp", "swa_mlp", "attn_moe", "rwkv", "mamba_mlp",
-                "mamba_moe")
 ATTENTION_KINDS = ("attn_mlp", "swa_mlp", "attn_moe")
 MAMBA_KINDS = ("mamba_mlp", "mamba_moe")
 MOE_KINDS = ("attn_moe", "mamba_moe")
@@ -46,33 +55,28 @@ MOE_KINDS = ("attn_moe", "mamba_moe")
 GLOBAL_KINDS = ("attn_mlp", "attn_moe")
 
 
-def _not_ported(kind):
-    return NotImplementedError(
-        f"layer kind {kind!r} is not ported yet (ROADMAP Queue A item "
-        f"11e: cross_mlp and enc_mlp; the port serves the kinds "
-        f"{PORTED_KINDS})")
-
-
 # ---------------------------------------------------------------------------
 # per-kind init / full-seq forward / decode
 # ---------------------------------------------------------------------------
 
 def layer_init(kind, gen, cfg, dtype):
-    if kind in ATTENTION_KINDS or kind in MAMBA_KINDS:
-        dev = gen.device
-        mixer = ({"attn": L.attention_init(gen, cfg, dtype)}
-                 if kind in ATTENTION_KINDS
-                 else {"mamba": M.mamba_init(gen, cfg, dtype)})
-        out = {"norm1": L.rmsnorm_init(cfg.d_model, dtype, dev), **mixer,
-               "norm2": L.rmsnorm_init(cfg.d_model, dtype, dev)}
-        if kind in MOE_KINDS:
-            out["moe"] = MOE.moe_init(gen, cfg, dtype)
-        else:
-            out["mlp"] = L.mlp_init(gen, cfg.d_model, cfg.d_ff, dtype)
-        return out
     if kind == "rwkv":
         return R.rwkv_block_init(gen, cfg, dtype)
-    raise _not_ported(kind)
+    if kind not in ATTENTION_KINDS + MAMBA_KINDS + ("enc_mlp", "cross_mlp"):
+        raise ValueError(kind)
+    dev = gen.device
+    mixer = ({"mamba": M.mamba_init(gen, cfg, dtype)} if kind in MAMBA_KINDS
+             else {"attn": L.attention_init(gen, cfg, dtype)})
+    if kind == "cross_mlp":
+        mixer.update(norm_x=L.rmsnorm_init(cfg.d_model, dtype, dev),
+                     xattn=L.attention_init(gen, cfg, dtype))
+    out = {"norm1": L.rmsnorm_init(cfg.d_model, dtype, dev), **mixer,
+           "norm2": L.rmsnorm_init(cfg.d_model, dtype, dev)}
+    if kind in MOE_KINDS:
+        out["moe"] = MOE.moe_init(gen, cfg, dtype)
+    else:
+        out["mlp"] = L.mlp_init(gen, cfg.d_model, cfg.d_ff, dtype)
+    return out
 
 
 def _ffn(kind, params, cfg, x):
@@ -90,19 +94,20 @@ def _use_rope(cfg) -> bool:
     return cfg.family != "hybrid"
 
 
-def layer_forward(kind, params, cfg, x, want_cache=False):
-    """Full-sequence forward. Returns (x, cache_or_None, aux): a local
-    layer's cache holds the last ``cfg.window`` positions, in order; aux
-    is the MoE's float32 load-balance loss, None for a kind without one
-    (the reference's 0)."""
-    if kind in ATTENTION_KINDS:
+def layer_forward(kind, params, cfg, x, enc_out=None, want_cache=False):
+    """Full-sequence forward; ``enc_out`` the encoder's output (B, F, d),
+    which only ``cross_mlp`` reads. Returns (x, cache_or_None, aux): a
+    local layer's cache holds the last ``cfg.window`` positions, in order;
+    aux is the MoE's float32 load-balance loss, None for a kind without
+    one (the reference's 0)."""
+    if kind in ATTENTION_KINDS or kind == "enc_mlp":
         window = cfg.window if kind == "swa_mlp" else 0
         h, k, v = L.full_seq_attention(
-            params["attn"], cfg, L.rmsnorm(params["norm1"], x), causal=True,
-            window=window, use_rope=_use_rope(cfg))
+            params["attn"], cfg, L.rmsnorm(params["norm1"], x),
+            causal=kind != "enc_mlp", window=window, use_rope=_use_rope(cfg))
         x = x + h
         cache = None
-        if want_cache:
+        if want_cache and kind != "enc_mlp":
             if window:
                 k, v = k[:, -window:], v[:, -window:]
             if getattr(cfg, "kv_dtype", "") == "int8":
@@ -122,7 +127,18 @@ def layer_forward(kind, params, cfg, x, want_cache=False):
         x = x + h
         h, aux = _ffn(kind, params, cfg, x)
         return x + h, (state if want_cache else None), aux
-    raise _not_ported(kind)
+    if kind == "cross_mlp":
+        h, k, v = L.full_seq_attention(
+            params["attn"], cfg, L.rmsnorm(params["norm1"], x), causal=True)
+        x = x + h
+        h, ek, ev = L.full_seq_attention(
+            params["xattn"], cfg, L.rmsnorm(params["norm_x"], x),
+            kv_x=enc_out, causal=False, use_rope=False)
+        x = x + h
+        cache = {"k": k, "v": v, "ek": ek, "ev": ev} if want_cache else None
+        h, aux = _ffn(kind, params, cfg, x)
+        return x + h, cache, aux
+    raise ValueError(kind)
 
 
 def layer_decode(kind, params, cfg, x, cache, pos):
@@ -143,7 +159,19 @@ def layer_decode(kind, params, cfg, x, cache, pos):
         x = x + h
         h, _ = _ffn(kind, params, cfg, x)
         return x + h, state
-    raise _not_ported(kind)
+    if kind == "cross_mlp":
+        # decode_attention writes the self-attention slot into ``cache``
+        # in place: the encoder's ek/ev ride along in the same dict
+        h, cache = L.decode_attention(
+            params["attn"], cfg, L.rmsnorm(params["norm1"], x), cache, pos)
+        x = x + h
+        q = L._split_heads(L.rmsnorm(params["norm_x"], x)
+                           @ params["xattn"]["wq"], cfg.n_heads, cfg.hd)
+        out = L.gqa_core(q, cache["ek"], cache["ev"])
+        x = x + out.reshape(out.shape[:2] + (-1,)) @ params["xattn"]["wo"]
+        h, _ = _ffn(kind, params, cfg, x)
+        return x + h, cache
+    raise ValueError(kind)
 
 
 # ---------------------------------------------------------------------------
@@ -176,6 +204,19 @@ def layer_pattern(cfg):
     raise ValueError(cfg.family)
 
 
+def prefill_kernel_launches(cfg) -> int:
+    """The launches of the arch's sequence kernel in one prefill: the WKV6
+    scan once in every rwkv layer; flash attention once in every attention
+    layer and in each of audio's encoder layers, twice in a cross_mlp layer
+    (self and cross attention), never in a Mamba layer."""
+    pattern = layer_pattern(cfg)
+    if cfg.family == "ssm":
+        return pattern.count("rwkv")
+    encoder = cfg.n_encoder_layers if cfg.family == "audio" else 0
+    return (sum(kind in ATTENTION_KINDS for kind in pattern)
+            + 2 * pattern.count("cross_mlp") + encoder)
+
+
 def _cycle(pattern):
     for c in range(1, len(pattern) + 1):
         if len(pattern) % c == 0 and pattern == pattern[:c] * (len(pattern) // c):
@@ -190,11 +231,14 @@ def stack_init(gen, cfg, dtype, pattern=None):
     return [layer_init(kind, gen, cfg, dtype) for kind in pattern]
 
 
-def stack_forward(pattern, layers, cfg, x, want_cache=False, remat=False):
+def stack_forward(pattern, layers, cfg, x, enc_out=None, want_cache=False,
+                  remat=False):
     """Returns (x, per-layer caches, aux): aux the layers' load-balance
-    losses summed in float32. ``remat``: under autograd, each layer
-    runs under ``torch.utils.checkpoint`` (non-reentrant), so only its
-    input is kept and its activations are rebuilt in the backward. The
+    losses summed in float32; ``enc_out`` the encoder's output for the
+    ``cross_mlp`` layers. ``remat``: under autograd, each layer runs
+    under ``torch.utils.checkpoint`` (non-reentrant), with ``enc_out``
+    among its inputs, so only its inputs are kept, its activations are
+    rebuilt in the backward and the gradient reaches the encoder. The
     reference checkpoints a cycle block (``jax.checkpoint`` over the
     scanned block); a layer at a time gives the same numbers with less
     memory, since the port keeps one tree per layer."""
@@ -204,10 +248,10 @@ def stack_forward(pattern, layers, cfg, x, want_cache=False, remat=False):
         if remat and torch.is_grad_enabled():
             # the layers draw no random numbers: no RNG state to replay
             x, cache, a = checkpoint(layer_forward, kind, p, cfg, x,
-                                     want_cache, use_reentrant=False,
+                                     enc_out, want_cache, use_reentrant=False,
                                      preserve_rng_state=False)
         else:
-            x, cache, a = layer_forward(kind, p, cfg, x, want_cache)
+            x, cache, a = layer_forward(kind, p, cfg, x, enc_out, want_cache)
         caches.append(cache)
         if a is not None:
             aux = aux + a

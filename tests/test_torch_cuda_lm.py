@@ -5,7 +5,9 @@ six layers and, through the example, all 48), flash at qwen3-moe's GQA
 group of 16, the MoE block and a reduced qwen3-moe prefill on the
 card against the CPU, and the Mamba block (its plain scan: prefill,
 decode, gradients) and a reduced jamba prefill on the card against the
-CPU. Every test here is marked
+CPU, and the frontend families: flash forward and backward at
+whisper-base's and internvl2-26b's shapes, and their reduced prefills on
+the card against the CPU. Every test here is marked
 ``cuda`` and
 skips without a CUDA device; the module imports no JAX, so it also runs
 on a machine without it:
@@ -24,6 +26,7 @@ import torch
 
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import rwkv_scan as trs
+from repro_torch.models import transformer as T
 
 pytestmark = pytest.mark.cuda
 
@@ -184,27 +187,126 @@ def test_launch_counters_move():
 @pytest.mark.parametrize("arch", ["rwkv6-3b", "phi3-medium-14b",
                                   "gemma3-12b", "qwen3-moe-235b-a22b",
                                   "llama4-maverick-400b-a17b",
-                                  "jamba-1.5-large-398b"])
+                                  "jamba-1.5-large-398b", "whisper-base",
+                                  "internvl2-26b"])
 def test_serve_smoke_preset(arch):
     """The port's default serve command (``--preset smoke``, the reduced
     float32 config: rwkv6's head dim 16, phi3's and gemma3's 32; jamba's
-    [mamba_mlp, attn_moe]) on the card through
-    ``launch/serve.py``: ids in [0, vocab), finite logits, and one kernel
-    launch per rwkv or attention layer in the one prefill."""
+    [mamba_mlp, attn_moe]; whisper's 2 encoder and 2 decoder layers over 8
+    frames; internvl's 2 layers over 8 patches) on the card through
+    ``launch/serve.py``: ids in [0, vocab), finite logits, and the
+    kernel's launches in the one prefill (``transformer.prefill_kernel_launches``)."""
     from repro_torch import configs
     from repro_torch.launch import serve
-    from repro_torch.models import transformer as T
 
     _cuda()
     cfg = configs.get(arch).reduced()
     counter, key = ((trs.LAUNCHES, "rwkv_scan") if cfg.family == "ssm"
                     else (tfa.LAUNCHES, "flash_attention"))
-    kinds = ("rwkv",) if cfg.family == "ssm" else T.ATTENTION_KINDS
     counter[key] = 0
     toks, info = serve.main(["--arch", arch, "--device", "cuda"])
-    assert counter[key] == sum(k in kinds for k in T.layer_pattern(cfg))
+    assert counter[key] == T.prefill_kernel_launches(cfg)
     assert info["logits_finite"]
     assert bool(((toks >= 0) & (toks < cfg.vocab)).all())
+
+
+# the frontend families' attention shapes: (B, Sq, Sk, H, KV, hd, causal)
+FRONTEND_SHAPES = {
+    # whisper-base's encoder over its 1,500 frames and its cross attention
+    # (227 prompt tokens over them: whisper's longest prefill), its
+    # decoder's self-attention over its 448-token text context
+    "whisper encoder": (16, 1500, 1500, 8, 8, 64, False),
+    "whisper cross": (16, 227, 1500, 8, 8, 64, False),
+    "whisper self": (16, 448, 448, 8, 8, 64, True),
+    # internvl2-26b's prefill: 256 patches and 2,048 tokens, 48 query heads
+    # over 8 KV heads (a group of 6)
+    "internvl prefill": (4, 2304, 2304, 48, 8, 128, True),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", sorted(FRONTEND_SHAPES))
+def test_flash_at_frontend_shapes(shape, dtype):
+    """Flash forward at whisper's and internvl's serving shapes against
+    its plain version."""
+    dev = _cuda()
+    B, Sq, Sk, H, KV, hd, causal = FRONTEND_SHAPES[shape]
+    q = _normal((B, Sq, H, hd), 20, dtype, dev)
+    k = _normal((B, Sk, KV, hd), 21, dtype, dev)
+    v = _normal((B, Sk, KV, hd), 22, dtype, dev)
+    got = tfa.flash_attention(q, k, v, causal=causal)
+    want = tfa.flash_attention_plain(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    _close(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", sorted(FRONTEND_SHAPES))
+def test_flash_backward_at_frontend_train_shapes(shape, dtype):
+    """Flash backward at the train path's batch of one (whisper's self
+    attention over 448 tokens, its cross attention and its encoder;
+    internvl's 2,304 positions at a group of 6), fed the forward's
+    log-sum-exp, against the plain backward: each gradient within 1e-3
+    (float32) / 2e-2 (bf16) of its largest entry, as
+    ``tests/test_torch_cuda_train.py`` holds it."""
+    from repro_torch.kernels import ref
+    dev = _cuda()
+    _, Sq, Sk, H, KV, hd, causal = FRONTEND_SHAPES[shape]
+    if shape == "whisper cross":
+        Sq = 448
+    q = _normal((1, Sq, H, hd), 23, dtype, dev)
+    k = _normal((1, Sk, KV, hd), 24, dtype, dev)
+    v = _normal((1, Sk, KV, hd), 25, dtype, dev)
+    do = _normal((1, Sq, H, hd), 26, dtype, dev)
+    o, lse = tfa.flash_attention(q, k, v, causal=causal, return_lse=True)
+    got = tfa.flash_attention_backward(q, k, v, o, lse, do, causal=causal)
+    torch.cuda.synchronize()
+    want = ref.flash_attention_backward_plain(q, k, v, o, do, causal=causal)
+    tol = 1e-3 if dtype == torch.float32 else 2e-2
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        err = float((g.float() - w.float()).abs().max())
+        assert err <= tol * float(w.float().abs().max()), (name, err)
+
+
+@pytest.mark.parametrize("arch", ["whisper-base", "internvl2-26b"])
+def test_frontend_two_layer_prefill_card_matches_cpu(arch):
+    """The reduced whisper (2 encoder and 2 decoder layers over 8 frames)
+    and internvl (2 layers over 8 patches), float32, prefilled on the card
+    and on the CPU from the same weights and batch: logits and caches
+    within 1e-4, the flash launches of one prefill, and one decode step
+    at the position past the prompt (and the patches)."""
+    from repro_torch import configs
+    from repro_torch.models.model import build_model, make_batch, n_prefix
+    from repro_torch.tree import tree_map
+    dev = _cuda()
+    cfg = configs.get(arch).reduced()
+    cpu = build_model(cfg, device="cpu")
+    gen = torch.Generator().manual_seed(2)
+    params = cpu.init(gen)
+    batch = make_batch(gen, cfg, 2, 96)
+    pos = n_prefix(cfg) + 96
+    want, want_cache = cpu.prefill(params, batch, cache_len=pos + 4)
+    want_cache = tree_map(torch.clone, want_cache)
+    tok = want[..., :cfg.vocab].argmax(-1)
+    want_step, _ = cpu.decode(params, tree_map(torch.clone, want_cache),
+                              tok, pos)
+    card = build_model(cfg, device=dev)
+    tfa.LAUNCHES["flash_attention"] = 0
+    params = params.to(dev)                 # the module moves in place
+    got, got_cache = card.prefill(params, tree_map(
+        lambda t: t.to(dev), batch), cache_len=pos + 4)
+    assert tfa.LAUNCHES["flash_attention"] == T.prefill_kernel_launches(cfg)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    for a, b in zip(got_cache, want_cache):
+        assert sorted(a) == sorted(b)
+        for key in b:
+            torch.testing.assert_close(a[key].cpu(), b[key], rtol=1e-4,
+                                       atol=1e-4)
+    got_step, _ = card.decode(params, got_cache, tok.to(dev), pos)
+    torch.testing.assert_close(got_step.cpu(), want_step, rtol=1e-4,
+                               atol=1e-4)
 
 
 def test_gemma3_one_cycle_at_full_width():

@@ -111,16 +111,23 @@ def test_hybrid_prefill_and_greedy_decode_match(monkeypatch, pattern,
     assert_gaps(gaps, 1 + NEW)
 
 
-def _check_prefill_and_decode(aid, **changes):
+def _check_prefill_and_decode(aid, frontend=None, n_prefix=0, **changes):
+    """``frontend``: an optional (key, numpy (B, F, d)) handed to both
+    models in the batch (audio's frames, vlm's patches); ``n_prefix``: the
+    positions it takes before the tokens (vlm's F), by which the cache
+    grows and every decode position moves."""
     jmodel, jparams, _, tmodel, tparams = _pair(aid, **changes)
     toks = _tokens(jmodel.cfg.vocab)
-    cache_len = S + NEW
+    cache_len = n_prefix + S + NEW
+    jbatch, tbatch = {"tokens": jnp.asarray(toks)}, {"tokens":
+                                                     torch.tensor(toks)}
+    if frontend is not None:
+        key, arr = frontend
+        jbatch[key], tbatch[key] = jnp.asarray(arr), torch.tensor(arr)
     jprefill = jax.jit(jmodel.prefill, static_argnames=("cache_len",))
     jdecode = jax.jit(jmodel.decode)
-    jlogits, jcache = jprefill(jparams, {"tokens": jnp.asarray(toks)},
-                               cache_len=cache_len)
-    tlogits, tcache = tmodel.prefill(tparams, {"tokens": torch.tensor(toks)},
-                                     cache_len=cache_len)
+    jlogits, jcache = jprefill(jparams, jbatch, cache_len=cache_len)
+    tlogits, tcache = tmodel.prefill(tparams, tbatch, cache_len=cache_len)
     np.testing.assert_allclose(np_of(tlogits), np.asarray(jlogits), **F32_TOL)
     cycle = len(jcache)                         # one tree a cycle position
     for stacked, jpos in zip(_stacked(tcache, cycle), jcache):
@@ -143,9 +150,10 @@ def _check_prefill_and_decode(aid, **changes):
     ttok = torch.argmax(tlogits[..., :vocab], dim=-1)
     for i in range(NEW):
         np.testing.assert_array_equal(np_of(ttok), np.asarray(jtok))
+        pos = n_prefix + S + i
         jlogits, jcache = jdecode(jparams, jcache, jtok,
-                                  jnp.asarray(S + i, jnp.int32))
-        tlogits, tcache = tmodel.decode(tparams, tcache, ttok, S + i)
+                                  jnp.asarray(pos, jnp.int32))
+        tlogits, tcache = tmodel.decode(tparams, tcache, ttok, pos)
         np.testing.assert_allclose(np_of(tlogits), np.asarray(jlogits),
                                    **F32_TOL)
         jtok = jnp.argmax(jlogits[..., :vocab], axis=-1).astype(jnp.int32)
@@ -275,10 +283,54 @@ def test_init_cache_matches_prefill_layout():
                 {k: (v.shape, v.dtype) for k, v in want.items()}
 
 
-def test_unported_families_raise():
-    for aid in ("whisper-base", "internvl2-26b"):
-        with pytest.raises(NotImplementedError, match="Queue A item 11"):
-            t_build(TCFG.get(aid).reduced(), device="cpu")
+@pytest.mark.parametrize("aid,full,reduced", [
+    ("phi3-medium-14b", 40, 2), ("rwkv6-3b", 32, 2), ("gemma3-12b", 48, 2),
+    ("jamba-1.5-large-398b", 9, 1), ("whisper-base", 6 + 2 * 6, 2 + 2 * 2),
+    ("internvl2-26b", 48, 2)])
+def test_prefill_kernel_launches(aid, full, reduced):
+    """The sequence kernel's launches a prefill, as chip_smoke.py and the
+    card's tests count them: one a scan or attention layer (none a Mamba
+    layer, jamba's 9 attention layers of 72), one an audio encoder layer,
+    two a cross_mlp layer."""
+    from repro_torch.models import transformer as T
+    cfg = TCFG.get(aid)
+    assert T.prefill_kernel_launches(cfg) == full
+    assert T.prefill_kernel_launches(cfg.reduced()) == reduced
+
+
+def _whisper_int8():
+    return _cfgs("whisper-base", kv_dtype="int8")
+
+
+def test_reference_fault_whisper_int8_decode():
+    """A fault of the reference, recorded (ROADMAP Queue C item 7): its
+    reduced whisper with the int8 KV cache prefills, but its cross_mlp
+    prefill keeps bf16 k/v with no scales, so its first decode step reads
+    ``cache["k_scale"]`` and raises ``KeyError``. If the reference
+    changes, this test shows it."""
+    jcfg, _ = _whisper_int8()
+    jmodel = j_build(jcfg)
+    jparams = jmodel.init(jax.random.PRNGKey(0))
+    toks = _tokens(jcfg.vocab)
+    frames = np.zeros((B, jcfg.n_frontend_tokens, jcfg.d_model), np.float32)
+    logits, cache = jmodel.prefill(jparams, {"tokens": jnp.asarray(toks),
+                                             "frames": jnp.asarray(frames)},
+                                   cache_len=S + NEW)
+    assert "k_scale" not in cache[0] and cache[0]["k"].dtype != jnp.int8
+    with pytest.raises(KeyError, match="k_scale"):
+        jmodel.decode(jparams, cache, jnp.asarray(toks[:, :1], jnp.int32),
+                      jnp.asarray(S, jnp.int32))
+
+
+def test_port_refuses_audio_with_int8_kv():
+    """The port adds no feature the reference lacks: audio with the int8
+    KV cache raises at build time, naming Queue C item 7; its bf16 cache
+    and vlm's int8 one build."""
+    _, tcfg = _whisper_int8()
+    with pytest.raises(NotImplementedError, match="Queue C item 7"):
+        t_build(tcfg, device="cpu")
+    t_build(dataclasses.replace(tcfg, kv_dtype=""), device="cpu")
+    t_build(_cfgs("internvl2-26b", kv_dtype="int8")[1], device="cpu")
 
 
 def test_entry_points_default_to_the_gpu():
