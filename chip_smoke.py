@@ -79,8 +79,13 @@ points at full width and checks what comes out:
    at full width through ``repro_torch.fed.trainer.make_train_step``
    (the forward and backward kernels in every attention or rwkv layer,
    ``qb_encode`` on every leaf of at least 65,536 elements whose group
-   is not 1), ``repro_torch.launch.train`` at the ``100m`` and ``smoke``
-   presets, and three smoke rounds on the card against the CPU.
+   is not 1); then ``train_mesh``: gemma3-12b's run again, its model,
+   initial iterate and batches, as 2 physical silos off the mesh and on
+   a one-rank NCCL ``DeviceMesh`` with the gather and the reduce uplink,
+   each round from one state with the same draws (the fused decode +
+   reduce on each layer's ``wq`` in every reduce round);
+   ``repro_torch.launch.train`` at the ``100m`` and ``smoke`` presets,
+   and three smoke rounds on the card against the CPU.
 
 Each phase prints one JSON line, and a line on standard error with the
 seconds since the start; the last line is ``{"ok": true,
@@ -201,6 +206,7 @@ REPLACES = {
     "encode_seeded_small": "src/repro/core/compression.py:698",
     "encode_seeded_small_g16": "src/repro/core/compression.py:698",
     "decode_reduce": "src/repro/kernels/quantize_block.py:318",
+    "decode_reduce_wq": "src/repro/kernels/quantize_block.py:318",
     "flash_attention": "src/repro/kernels/flash_attention.py:93",
     "rwkv_scan": "src/repro/kernels/rwkv_scan.py:68",
 }
@@ -359,6 +365,13 @@ SMALL_GROUP_SHAPE, SMALL_GROUP = (262144, 3840), 8
 EXPERT_LEAF_SHAPE, EXPERT_GROUP = (128 * 4096, 1536), 16
 # past 2^31 elements: the last row starts at element 2^31
 BIG_SHAPE = (2 ** 31 // 4096 + 1, 4096)
+# gemma3-12b's wq (d 3,840 x 16 heads of 256, bf16), the one leaf of the
+# train_mesh path whose shard-safe group (4,096 / 32 = 128) the fused
+# decode + reduce takes, over its 2 clients
+WQ_SHAPE, WQ_GROUP, WQ_CLIENTS = (3840, 4096), 128, 2
+# the bf16 rounding of a dequantized element: an add, a shift, an and and
+# a mask, per element and client
+OPS_BF16 = 4
 
 
 def encode_past_2_31(qb, gen, seed) -> dict:
@@ -533,7 +546,55 @@ def kernel_checks(qb):
     record("decode_reduce", kern, plain, max_abs_err(got, want),
            N_CLIENTS * (n + 4 * n // g) + 4 * N_CLIENTS + 4 * n,
            OPS_REDUCE * N_CLIENTS * n, iters=10)
+    del codes, scales, got, want
+    same = decode_reduce_wq(qb, gen, seed, record)
+    wq = results["decode_reduce_wq"]
+    wq.update(shape=list(WQ_SHAPE), group=WQ_GROUP, clients=WQ_CLIENTS,
+              round_to="bfloat16", bits_equal_stack_tensordot=same,
+              pct_of_bound=100 * wq["bound_ms"] / wq["ms"])
     return results
+
+
+def decode_reduce_wq(qb, gen, seed, record) -> dict:
+    """The fused decode + reduce at the train_mesh path's leaf: gemma3's
+    ``wq`` (WQ_SHAPE, group WQ_GROUP) over WQ_CLIENTS clients of weight
+    1/2, each dequantized element rounded to bf16 (the leaf's dtype, as
+    ``decode`` rounds it): bit for bit its plain version, and equal to the
+    decoded bf16 stack reduced by a tensordot; ``record`` keeps its
+    times. Returns whether it equals the tensordot bit for bit (two
+    weights of 1/2: one rounding of an exact sum on both sides)."""
+    import torch
+    device, g, C = "cuda", WQ_GROUP, WQ_CLIENTS
+    R, D = WQ_SHAPE
+    n = R * D
+    x = torch.randn(WQ_SHAPE, generator=gen, device=device) * 0.02
+    codes = torch.empty((C, R, D), dtype=torch.int8, device=device)
+    scales = torch.empty((C, R, D // g), device=device)
+    for c in range(C):
+        codes[c], scales[c] = qb.quantize_encode_grouped(
+            x * (1.0 + 0.1 * c), bits=BITS, group=g, seed=seed + c)
+    w = torch.full((C,), 1.0 / C, device=device)
+    kern = lambda: qb.decode_reduce_grouped(codes, scales, w, bits=BITS,
+                                            group=g, round_to=torch.bfloat16)
+    plain = lambda: qb.decode_reduce_grouped_plain(
+        codes, scales, w, bits=BITS, group=g, round_to=torch.bfloat16)
+    got, want = kern(), plain()
+    require(bits_equal(got, want),
+            "decode_reduce at wq: kernel differs from its plain version")
+    stack = torch.stack([qb.ref.decode_groups_ref(
+        codes[c].reshape(R, D // g, g), scales[c].reshape(R, D // g, 1),
+        BITS).reshape(R, D).to(torch.bfloat16) for c in range(C)])
+    dot = torch.tensordot(w, stack.float(), dims=1)
+    require(bool(torch.allclose(got, dot, rtol=1e-6, atol=1e-9)),
+            "decode_reduce at wq: disagrees with the decoded bf16 stack's "
+            "tensordot")
+    same = bits_equal(got, dot)
+    err = max_abs_err(got, want)
+    del stack, dot, got, want
+    record("decode_reduce_wq", kern, plain, err,
+           C * (n + 4 * n // g) + 4 * C + 4 * n,
+           (OPS_REDUCE + OPS_BF16) * C * n, iters=20)
+    return same
 
 
 # ---------------------------------------------------------------------------
@@ -2891,7 +2952,24 @@ def _read_counts() -> dict:
             for k, v in counter.items() if v}
 
 
-def train_run(name: str, profile: bool) -> dict:
+def _route_leaves(name: str, leaves) -> tuple:
+    """(groups of the leaves of at least KERNEL_DISPATCH_MIN elements,
+    the kernel-route leaves among them, those with groups below 128).
+    Every such leaf is encoded by the kernel, whatever its shard-safe group
+    (the largest power of two dividing D / 32, at most BLOCK: 1 to 256
+    here); a group of 1 travels raw, as in the reference (jamba's w_bc and
+    A_log)."""
+    from repro_torch.core import compression as C
+    from repro_torch.kernels import quantize_block as qb
+    large = [x for x in leaves if x.numel() >= C.KERNEL_DISPATCH_MIN]
+    groups = [C.group_size(x.shape[-1], BLOCK) for x in large]
+    require(all(qb.kernel_group_ok(g) for g in groups),
+            f"{name}: a large leaf's group {groups} is not the kernel's")
+    return (groups, sum(1 for g in groups if g >= 2),
+            sum(1 for g in groups if 2 <= g < 128))
+
+
+def train_run(name: str, profile: bool, keep: dict = None) -> dict:
     """FedMM training of one arch at full width through
     ``fed.trainer.make_train_step``: 1 warm-up round, then TRAIN_ROUNDS
     timed (the counters zeroed just before them), each client a batch of
@@ -2901,13 +2979,14 @@ def train_run(name: str, profile: bool) -> dict:
     of the layer's kernel per layer that runs it (the step and its
     rematerialisation; a Mamba layer runs the plain scan twice), one
     encode per kernel-route leaf, uplink bytes equal to
-    ``payload_bytes``."""
+    ``payload_bytes``. ``keep``, when given, receives the model, the
+    initial iterate (on the host, copied before the timed rounds) and the
+    batches, for ``train_mesh``."""
     import dataclasses
     import torch
     from repro_torch import configs
     from repro_torch.core import compression as C
     from repro_torch.fed import trainer as FT
-    from repro_torch.kernels import quantize_block as qb
     from repro_torch.launch.train import sample_batch
     from repro_torch.models import transformer as T
     from repro_torch.models.model import build_model
@@ -2938,21 +3017,15 @@ def train_run(name: str, profile: bool) -> dict:
                                   for x in leaves)}
     comp = fcfg.federation_spec().compressor
     payload = comp.payload_bytes(state.s_hat)
-    # every leaf of at least KERNEL_DISPATCH_MIN elements is encoded by
-    # the kernel, whatever its shard-safe group (the largest power of two
-    # dividing D / 32, at most BLOCK: 1 to 256 here); a group of 1
-    # travels raw, as in the reference (jamba's w_bc and A_log)
-    large = [x for x in leaves if x.numel() >= C.KERNEL_DISPATCH_MIN]
-    groups = [C.group_size(x.shape[-1], BLOCK) for x in large]
-    require(all(qb.kernel_group_ok(g) for g in groups),
-            f"{name}: a large leaf's group {groups} is not the kernel's")
-    kernel_leaves = sum(1 for g in groups if g >= 2)
-    small_leaves = sum(1 for g in groups if 2 <= g < 128)
+    groups, kernel_leaves, small_leaves = _route_leaves(name, leaves)
     step = FT.make_train_step(model, fcfg)
     data_gen = torch.Generator().manual_seed(SEED)
     round_gen = torch.Generator().manual_seed(SEED + 1)
     batches = [sample_batch(data_gen, cfg, n, 1, seq, model.device)
                for _ in range(TRAIN_ROUNDS + 1)]
+    if keep is not None:
+        keep.update(model=model, batches=batches,
+                    s_hat=tree_map(lambda x: x.to("cpu"), state.s_hat))
 
     def one_round(t):
         gamma = TRAIN_GAMMA / (1.0 + t) ** 0.5
@@ -3020,6 +3093,200 @@ def train_run(name: str, profile: bool) -> dict:
     require(comm_ok, f"{name}: uplink bytes: one client's payload "
             f"{per_client} B, payload_bytes {payload}, billed {comm}")
     del state, batches
+    _free()
+    return out
+
+
+# train_mesh: train_gemma3's model, initial iterate and batches, stepped
+# as physical silos off the mesh and on a one-rank NCCL mesh with each
+# uplink, round by round from one state with the same draws
+TRAIN_MESH_RUN, TRAIN_MESH_ROUNDS = "train_gemma3", 2
+# a mesh round against the off-mesh round from the same state: the
+# reference pins its vmap client stage to its scan (tests/test_fed_trainer.py,
+# float32) at rtol 1e-5 / atol 1e-6, the rounding of one reduction in
+# another order. In bf16 that rounding is of the aggregate h, at most one
+# bf16 ulp of it (2^-7 |h| at worst), and the step x + gamma h can then
+# round to the neighbouring bf16 value: |got - want| <= 2^-7 (|want| +
+# |want - x|), gamma |h| being |want - x|
+MESH_BF16_ULP = 2.0 ** -7
+
+
+def _within_bf16_step(got, want, prev, chunk: int = 1 << 26):
+    """(every element within MESH_BF16_ULP (|want| + |want - prev|),
+    largest |got - want|, elements that differ) over three trees, a
+    flat chunk of each leaf at a time."""
+    from repro_torch.tree import tree_leaves
+    ok, gap, differ = True, 0.0, 0
+    for a, b, x in zip(tree_leaves(got), tree_leaves(want),
+                       tree_leaves(prev)):
+        a, b, x = a.reshape(-1), b.reshape(-1), x.reshape(-1)
+        for i in range(0, a.numel(), chunk):
+            ac, bc, xc = (t[i:i + chunk].float() for t in (a, b, x))
+            d = (ac - bc).abs()
+            tol = MESH_BF16_ULP * (bc.abs() + (bc - xc).abs())
+            ok = ok and bool((d <= tol).all())
+            gap = max(gap, float(d.max()))
+            differ += int((d > 0).sum())
+    return ok, gap, differ
+
+
+def train_mesh(ctx: dict) -> dict:
+    """gemma3-12b (6 of 48 layers, full width, bf16) as 2 physical silos,
+    variates off, ``block_quant(8, 256, "hash")``, 1 x 2,048 tokens a
+    client: ``train_gemma3``'s model, initial iterate and batches. Each of
+    TRAIN_MESH_ROUNDS rounds runs three times from the same state with
+    the same draws (``active=``, ``seeds=``): off the mesh (the driver's
+    scan), then on a one-rank NCCL ``DeviceMesh`` ``("clients",)`` with
+    ``uplink="gather"`` and with ``"reduce"`` (the rank's silos in
+    sequence, their payloads stacked, then the driver's mesh tail); the
+    next round starts from the off-mesh result. The process group starts
+    here and is destroyed at the end. Gates: each mesh iterate within
+    MESH_BF16_ULP of the off-mesh round's (``_within_bf16_step``); finite
+    losses; each run's peak under 80 GB (the off-mesh result is kept on
+    the card beside a mesh run: its bytes are in that peak); uplink bytes
+    a client equal to ``payload_bytes``; ``collective_payload_bytes`` the
+    gathered stack's (2 payloads) and the float32 partial's (4 bytes a
+    parameter); a client and round, the flash and encode launches of
+    ``train_gemma3``; a reduce round one ``qb_decode_reduce`` per leaf
+    whose group is a multiple of 128 (each layer's ``wq``), a gather or
+    off-mesh round none."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch import api
+    from repro_torch.fed import trainer as FT
+    from repro_torch.kernels import quantize_block as qb
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_leaves, tree_map
+
+    arch, layers, n, _, seq = TRAIN_RUNS[TRAIN_MESH_RUN]
+    model, batches = ctx["model"], ctx["batches"]
+    cfg = model.cfg
+    fcfg = FT.FedLMConfig(n_clients=n, rho=TRAIN_RHO, p=1.0, alpha=0.1,
+                          quant_bits=BITS, quant_block=BLOCK,
+                          quant_dither="hash", client_mode="physical",
+                          use_cv=False)
+    spec = fcfg.federation_spec()
+    comp = spec.compressor
+    state = FT.FedLMState(
+        s_hat=tree_map(lambda x: x.to("cuda"), ctx.pop("s_hat")), v=(),
+        v_i=(), step=torch.zeros((), dtype=torch.int64))
+    leaves = tree_leaves(state.s_hat)
+    n_leaves, params = len(leaves), sum(x.numel() for x in leaves)
+    payload = comp.payload_bytes(state.s_hat)
+    groups, kernel_leaves, small_leaves = _route_leaves("train_mesh",
+                                                        leaves)
+    reduce_leaves = sum(1 for g in groups if qb.reduce_group_ok(g))
+    del leaves                  # the first iterate goes with its state
+    n_kernel = T.prefill_kernel_launches(cfg)
+    out = {"phase": "train_mesh", "arch": arch, "layers": layers,
+           "clients": n, "variates": spec.variates,
+           "tokens_per_client": seq, "rounds": TRAIN_MESH_ROUNDS,
+           "world_size": 1, "backend": "nccl", "parameters": params,
+           "payload_bytes": payload, "decode_reduce_leaves": reduce_leaves,
+           "tolerance": "|mesh - off| <= 2^-7 (|off| + |off - x|)"}
+    torch.cuda.set_device(0)
+    t0 = time.perf_counter()
+    dist.init_process_group("nccl",
+                            init_method=f"tcp://localhost:{_free_port()}",
+                            rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh("cuda", (1,), mesh_dim_names=("clients",))
+        require(dist.get_backend(mesh.get_group("clients")) == "nccl",
+                "the client dim's group is not NCCL")
+        out["nccl_init_seconds"] = time.perf_counter() - t0
+        steps = {"off": FT.make_train_step(model, fcfg)}
+        for uplink in ("gather", "reduce"):
+            steps[uplink] = FT.make_train_step(model, fcfg, mesh=mesh,
+                                               uplink=uplink)
+        runs = {k: {"seconds": [], "peak_bytes": [], "loss": [],
+                    "launches_per_client_round": [], "comm_bytes": []}
+                for k in steps}
+        for k in ("gather", "reduce"):
+            runs[k].update(collective_payload_bytes=[], within=[],
+                           max_abs_gap=[], elements_differ=[])
+        launches = {}
+        draws = torch.Generator().manual_seed(SEED + 2)
+        for t in range(TRAIN_MESH_ROUNDS):
+            active, seeds = api.participation_draw(draws, spec, n_leaves)
+            gamma = TRAIN_GAMMA / (1.0 + t) ** 0.5
+            ref = None
+            for k, step in steps.items():
+                _free()
+                torch.cuda.reset_peak_memory_stats()
+                _zero_counts()
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                new, m = step(state, batches[t], None, gamma, active=active,
+                              seeds=seeds)
+                torch.cuda.synchronize()
+                r = runs[k]
+                r["seconds"].append(time.perf_counter() - t1)
+                r["peak_bytes"].append(torch.cuda.max_memory_allocated())
+                counts = _read_counts()
+                per = {c: v / n for c, v in counts.items()
+                       if c != "decode_reduce"}
+                per["decode_reduce_per_round"] = counts.get("decode_reduce", 0)
+                r["launches_per_client_round"].append(per)
+                if k != "off":
+                    for c, v in counts.items():
+                        c = "decode_reduce_wq" if c == "decode_reduce" else c
+                        launches[c] = launches.get(c, 0) + v
+                loss = float(m["loss"])
+                r["loss"].append(loss)
+                r["comm_bytes"].append(float(m["comm_bytes"]))
+                require(loss == loss and abs(loss) < float("inf"),
+                        f"train_mesh {k}: loss {loss}")
+                require(r["peak_bytes"][-1] < 80e9,
+                        f"train_mesh {k}: peak {r['peak_bytes'][-1]}")
+                require(torch.equal(m["comm_bytes"].cpu(),
+                                    torch.tensor(float(payload))
+                                    * m["n_active"].cpu()),
+                        f"train_mesh {k}: uplink bytes {m['comm_bytes']}, "
+                        f"payload_bytes {payload}")
+                require(per.get("flash_attention", 0) == 2 * n_kernel
+                        and per.get("flash_attention_bwd", 0) == n_kernel,
+                        f"train_mesh {k}: flash launches per client and "
+                        f"round {per}, want {2 * n_kernel} / {n_kernel}")
+                require(per.get("encode_seeded_small", 0) == small_leaves
+                        and per.get("encode_seeded", 0)
+                        == kernel_leaves - small_leaves
+                        and per.get("encode", 0) == 0,
+                        f"train_mesh {k}: encode launches per client and "
+                        f"round {per}, want {kernel_leaves}, {small_leaves} "
+                        f"of them with groups below 128")
+                want = reduce_leaves if k == "reduce" else 0
+                require(per["decode_reduce_per_round"] == want,
+                        f"train_mesh {k}: {per['decode_reduce_per_round']} "
+                        f"decode + reduce launches, want {want}")
+                if k == "off":
+                    ref = new
+                    continue
+                stack = (float(n * payload) if k == "gather"
+                         else float(4 * params))
+                got_bytes = m["collective_payload_bytes"].cpu()
+                r["collective_payload_bytes"].append(float(got_bytes))
+                require(torch.equal(got_bytes, torch.tensor(
+                    stack, dtype=torch.float32)),
+                        f"train_mesh {k}: collective bytes {got_bytes}, "
+                        f"want {stack}")
+                ok, gap, differ = _within_bf16_step(new.s_hat, ref.s_hat,
+                                                    state.s_hat)
+                r["within"].append(ok)
+                r["max_abs_gap"].append(gap)
+                r["elements_differ"].append(differ)
+                require(ok, f"train_mesh {k} round {t}: the iterate parts "
+                        f"from off the mesh by {gap} ({differ} elements)")
+                del new
+            state = ref
+            del ref
+        out.update(runs=runs, launches=launches,
+                   kept_bytes=sum(x.numel() * x.element_size()
+                                  for x in tree_leaves(state.s_hat)))
+    finally:
+        dist.destroy_process_group()
+    del state
+    ctx.clear()
     _free()
     return out
 
@@ -3140,21 +3407,26 @@ def train_card_vs_cpu() -> dict:
 
 def train_phase(card: str, profile: bool) -> tuple:
     """The train phase: the backward kernels against their plain versions,
-    the full-width train runs, the entry point and the card against
-    the CPU. Emits each part's record; returns the backward kernels' rows
-    and each kernel's launches over the train runs."""
+    the full-width train runs (``train_mesh`` after ``train_gemma3``),
+    the entry point and the card against the CPU. Emits each part's
+    record; returns the backward kernels' rows, each kernel's launches
+    over the train runs and over ``train_mesh``'s mesh rounds."""
     rec, rows = backward_kernel_checks(profile)
     emit(dict(rec, card=card))
     _free()
     launches = {}
     for name in TRAIN_RUNS:
-        out = train_run(name, profile)
+        keep = {} if name == TRAIN_MESH_RUN else None
+        out = train_run(name, profile, keep)
         emit(dict(out, card=card))
         for k, v in out["launches"].items():
             launches[k] = launches.get(k, 0) + v
+        if keep is not None:
+            mesh_out = train_mesh(keep)
+            emit(dict(mesh_out, card=card))
     emit(dict(entry_point_runs(), card=card))
     emit(dict(train_card_vs_cpu(), card=card))
-    return rows, launches
+    return rows, launches, mesh_out["launches"]
 
 
 def profiled(fn, top: int = 12, watch: str = ""):
@@ -3475,19 +3747,25 @@ def main() -> int:
         total = sum(by_arch.values())
         row.update(launches=total, launches_by_path={"serve": total})
     _free()
-    bwd_rows, train_launches = train_phase(card, profile)
-    # the train path's launches: the full-width runs' timed rounds
-    for key, row in list(lm_kernels.items()) + list(kernels.items()):
-        n = sum(train_launches.get(c, 0) for c in ROW_COUNTS.get(key, (key,)))
-        if n:
-            by_path = row.setdefault("launches_by_path", {})
-            by_path["train"] = n
-            row["launches"] = sum(by_path.values())
+    bwd_rows, train_launches, mesh_launches = train_phase(card, profile)
+    # the train paths' launches: the full-width runs' timed rounds, and
+    # train_mesh's mesh rounds (its decode + reduce at wq counted on the
+    # decode_reduce_wq row)
+    for key, row in (list(lm_kernels.items()) + list(kernels.items())
+                     + list(bwd_rows.items())):
+        by_path = row.setdefault("launches_by_path", {})
+        for path, counts in (("train", train_launches),
+                             ("train_mesh", mesh_launches)):
+            n = sum(counts.get(c, 0) for c in ROW_COUNTS.get(key, (key,)))
+            if n:
+                by_path[path] = n
+        row["launches"] = sum(by_path.values())
     for key, row in bwd_rows.items():
-        row.update(launches=train_launches.get(key, 0),
-                   launches_by_path={"train": train_launches.get(key, 0)})
-        require(row["launches"] > 0, f"{key} was not launched on the train "
-                f"path")
+        require(row["launches_by_path"].get("train", 0) > 0,
+                f"{key} was not launched on the train path")
+    require(kernels["decode_reduce_wq"]["launches_by_path"].get(
+        "train_mesh", 0) > 0, "decode_reduce was not launched on the "
+            "train_mesh path")
     kernels.update(lm_kernels)
     kernels.update(bwd_rows)
     emit({"kernels": list(kernels.values())})

@@ -12,6 +12,10 @@ Client stage: ``client_mode`` ``"vmap"`` (the oracles of all clients in
 one ``torch.func.vmap``, then each client's encode with its own seeds,
 stacked into the payload the server decodes) or ``"scan"`` (the clients
 one after another, the aggregate accumulated in the iterate's dtype).
+``step(..., _oracle_loop=True)`` is the LM trainer's route on a mesh: the
+``"vmap"`` stage with the oracles called one client at a time (an oracle
+that ``torch.func.vmap`` cannot batch: ctypes kernel launches, autograd
+under checkpoint), each client's payload encoded before the next runs.
 
 Mesh: with ``mesh=`` (a ``torch.distributed.device_mesh.DeviceMesh`` with
 a ``client_axis`` dim) every rank runs the round for its own contiguous
@@ -67,8 +71,8 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
-from ..core.compression import (PackedLeaf, _tree_bytes, leaf_seeds,
-                                stack_payloads, verify_payload,
+from ..core.compression import (PackedLeaf, _tensordot, _tree_bytes,
+                                leaf_seeds, stack_payloads, verify_payload,
                                 zero_invalid_rows)
 from ..faults.injector import corrupt_payload
 from ..core.surrogate import (tree_lerp, tree_scale, tree_sq_norm,
@@ -234,13 +238,6 @@ def centralized_init(problem, s0, device=None) -> DriverState:
 # step
 # ---------------------------------------------------------------------------
 
-def _tensordot(w, x):
-    """sum_c w[c] * x[c] in the promoted dtype (as jnp.tensordot promotes
-    a float32 weight against a bf16 stack)."""
-    dt = torch.promote_types(w.dtype, x.dtype)
-    return torch.tensordot(w.to(dt), x.to(dt), dims=1)
-
-
 def _variate_update(v, q, coef):
     """Lines 8/11/17: V <- V + coef * q, leaf-wise (coef = alpha/p). The
     sum lands in the product's own buffer (``coef * q`` then ``+ v``, the
@@ -318,7 +315,7 @@ def _client_stage(problem: MMProblem, spec: FederationSpec, view, x_ref,
                   client_batches, v_i, seeds, mask, mu, *, client_mode,
                   uplink="gather", mesh=None, client_axis="clients",
                   rows=None, edge_seeds=None, edge_ids=None, corrupt=None,
-                  tier_finalize=True):
+                  tier_finalize=True, oracle_loop=False):
     """The client half of Algorithm 2. ``seeds``, ``mask`` and ``mu`` cover
     all n clients; ``client_batches`` and ``v_i`` the clients of ``rows``
     (``(lo, hi)``: the rank's block on a mesh, all n off it). Returns
@@ -337,7 +334,8 @@ def _client_stage(problem: MMProblem, spec: FederationSpec, view, x_ref,
     damaged (``spec.faults.corrupt_kind``) between encode and verify.
     ``tier_finalize=False`` (the cohort path) returns the two-tier
     ``(n_edges,)`` float32 per-edge partial instead of crossing the
-    boundary."""
+    boundary. ``oracle_loop``: the ``"vmap"`` stage with the oracles
+    called one client at a time."""
     p, alpha = spec.participation, spec.alpha
     param_space = spec.aggregation == "parameter"
     use_v = spec.use_variates
@@ -470,13 +468,26 @@ def _client_stage(problem: MMProblem, spec: FederationSpec, view, x_ref,
     # Encoding client by client gives the batched encode's values without
     # its memory: at model width the streamed hash dither alone holds
     # several GB of int64 temporaries per client.
-    if use_v:
-        d_stack, cmetrics = torch.func.vmap(oracle)(client_batches, v_i)
+    if oracle_loop:
+        # one client's oracle and drift alive at a time: what stays is
+        # its payload
+        parts, cms = [], []
+        for c in range(n_local):
+            d, cm = oracle(_take(client_batches, c),
+                           _take(v_i, c) if use_v else None)
+            parts.append(compress(lo + c, d))
+            del d
+            cms.append(cm)
+        cmetrics = tree_map(lambda *xs: torch.stack(xs), *cms)
     else:
-        d_stack, cmetrics = torch.func.vmap(
-            lambda b: oracle(b, None))(client_batches)
-    parts = [compress(lo + c, _take(d_stack, c)) for c in range(n_local)]
-    del d_stack
+        if use_v:
+            d_stack, cmetrics = torch.func.vmap(oracle)(client_batches, v_i)
+        else:
+            d_stack, cmetrics = torch.func.vmap(
+                lambda b: oracle(b, None))(client_batches)
+        parts = [compress(lo + c, _take(d_stack, c))
+                 for c in range(n_local)]
+        del d_stack
     payload = (stack_payloads(parts) if use_wire
                else tree_map(lambda *xs: torch.stack(xs), *parts))
     del parts
@@ -719,7 +730,8 @@ def step(problem: MMProblem, spec: FederationSpec, state: DriverState,
          mesh=None, client_axis: str = "clients", client_mode: str = "vmap",
          uplink: str = "gather", drift_metric: bool = True,
          sanitize: bool = False, audit_keys=False,
-         cohort: Optional[CohortSlice] = None, fault_draws=None):
+         cohort: Optional[CohortSlice] = None, fault_draws=None,
+         _oracle_loop: bool = False):
     """One federated MM round. ``client_batches``: a pytree with a leading
     client axis (all n clients, or the rank's block on a mesh; ``v_i``
     likewise). ``key``: the round's ``torch.Generator`` (the participation
@@ -742,7 +754,10 @@ def step(problem: MMProblem, spec: FederationSpec, state: DriverState,
     compressors (the analytic ``payload_bytes`` otherwise), plus the
     backbone under two-tier. On a mesh, ``collective_payload_bytes`` is
     the bytes of the collective's operand: the gathered stack
-    (``uplink="gather"``) or the float32 partial (``"reduce"``)."""
+    (``uplink="gather"``) or the float32 partial (``"reduce"``).
+
+    ``_oracle_loop``: internal, the LM trainer's route (the module
+    docstring); it runs the ``"vmap"`` stage only."""
     problem = as_problem(problem)
     dev = resolve_device(device)
     if cohort is not None:
@@ -814,7 +829,7 @@ def step(problem: MMProblem, spec: FederationSpec, state: DriverState,
         problem, spec, view, state.x, client_batches, state.v_i, seeds, mask,
         mu, client_mode=client_mode, uplink=uplink, mesh=mesh,
         client_axis=client_axis, rows=rows, edge_seeds=edge_seeds,
-        corrupt=corrupt)
+        corrupt=corrupt, oracle_loop=_oracle_loop)
     new_state, metrics = apply_partial(
         problem, spec, state._replace(v_i=v_i_new), agg, n_survive, gamma,
         drift_metric=drift_metric, device=dev)

@@ -762,16 +762,21 @@ def decode_tree(payload):
 def decode_reduce_leaf(p, w, kernel_threshold: int = KERNEL_DISPATCH_MIN,
                        fused: Optional[bool] = None):
     """``sum_c w[c] * decode(p[c])`` over the leading client axis of ONE
-    stacked payload leaf, in the accumulation dtype (float32).
+    stacked payload leaf, in the accumulation dtype (float32 under float32
+    weights: a bf16 stack is promoted, as ``jnp.tensordot`` promotes it).
 
-    Large float32 ``PackedLeaf``s whose group the kernel takes go to the
-    fused decode + reduce kernel (``kernels/ops.py:
+    Large float32 or bf16 ``PackedLeaf``s whose group the kernel takes go
+    to the fused decode + reduce kernel (``kernels/ops.py:
     dequantize_reduce_grouped``; the decoded client stack never exists),
-    accumulating in c order. Everything else decodes and reduces with a
-    tensordot, which agrees with the kernel to float32 reduction-order
-    rounding. ``fused=False`` forces the tensordot."""
+    accumulating in c order; for a bf16 leaf the kernel rounds each
+    dequantized element to bf16 first, as ``decode`` does. (The
+    reference keeps bf16 leaves off its kernel, which accumulates the raw
+    float32 dequant; the port's kernel reduces decode's own values.)
+    Everything else decodes and reduces with a tensordot, which agrees with
+    the kernel to float32 reduction-order rounding. ``fused=False`` forces
+    the tensordot."""
     if not isinstance(p, PackedLeaf):
-        return torch.tensordot(w, p, dims=1)
+        return _tensordot(w, p)
     shape, g, bits = tuple(p.shape), p.group, p.bits
     n = int(math.prod(shape))
     C = w.shape[0]
@@ -779,7 +784,7 @@ def decode_reduce_leaf(p, w, kernel_threshold: int = KERNEL_DISPATCH_MIN,
                                       else 1)) == 1
     route_ok = (fused is not False and n >= kernel_threshold
                 and reduce_group_ok(g) and one_batch_axis
-                and p.dtype == torch.float32
+                and p.dtype in (torch.float32, torch.bfloat16)
                 and p.scales.dtype == torch.float32)
     if route_ok:
         codes = p.codes
@@ -794,11 +799,19 @@ def decode_reduce_leaf(p, w, kernel_threshold: int = KERNEL_DISPATCH_MIN,
             s3 = p.scales.reshape(C, -1, 1)
         out = kernel_ops.dequantize_reduce_grouped(
             c3.contiguous(), s3.contiguous(), w.to(c3.device), bits=bits,
-            group=g)
+            group=g,
+            round_to=None if p.dtype == torch.float32 else p.dtype)
         if p.mode == "flat":
             out = out.reshape(-1)[:n]
         return out.reshape(shape)
-    return torch.tensordot(w, decode_leaf(p), dims=1)
+    return _tensordot(w, decode_leaf(p))
+
+
+def _tensordot(w, x):
+    """sum_c w[c] * x[c] in the promoted dtype (as jnp.tensordot promotes
+    a float32 weight against a bf16 stack)."""
+    dt = torch.promote_types(w.dtype, x.dtype)
+    return torch.tensordot(w.to(dt), x.to(dt), dims=1)
 
 
 def decode_reduce_tree(payload, w,

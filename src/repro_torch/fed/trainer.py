@@ -25,15 +25,27 @@ client's gradient, drift and payload alive at a time), never under
 
 Client topology (the reference's ``client_mode``):
   logical   n simulated clients run one after another: the driver's
-            ``"scan"``, as the reference maps it.
+            ``"scan"``, as the reference maps it. No mesh: a mesh raises
+            ``ValueError``, as the reference's ``api.step`` refuses
+            ``"scan"`` on a mesh.
   physical  the reference's batched silos (its ``"vmap"``, optionally on a
             mesh). Without a mesh the port runs them on ``"scan"`` as well:
             the two modes give the same trajectory, as the reference pins
             both of its modes to one frozen trajectory
-            (``tests/test_fed_trainer.py``). With ``mesh=`` it raises
-            ``NotImplementedError``: sharding the model over a mesh is
-            ROADMAP Queue A item 11g, and so are ``state_specs`` and
-            ``batch_spec``.
+            (``tests/test_fed_trainer.py``). On a mesh (``mesh=`` a
+            ``DeviceMesh`` with a ``client_axis`` dim) each rank runs its
+            own block of silos (``api.local_rows``) one after another,
+            stacks their payloads and runs the driver's mesh tail:
+            ``uplink="gather"`` gathers the encoded buffers over the
+            client dim, ``"reduce"`` decodes, masks and mu-reduces the
+            rank's stack (with no variates through the fused decode +
+            reduce kernel) and sums the float32 partial over the dim. A
+            rank holds its clients' payloads, never their gradients.
+            There the batch and ``v_i`` hold the rank's rows
+            (``interop.fedlm_state_for_rank``).
+
+``state_specs`` and ``batch_spec`` give the state's and the batch's
+layout on the production mesh (``models.sharding``), for the dry run.
 """
 from __future__ import annotations
 
@@ -41,10 +53,12 @@ import dataclasses
 from typing import NamedTuple, Optional
 
 import torch
+from torch.distributed.device_mesh import DeviceMesh
 
 from .. import api
 from ..core import compression
 from ..core.compression import Compressor
+from ..models import sharding as shd
 from ..models.layers import params_tree
 from ..models.model import build_model
 from ..tree import tree_flatten, tree_map, tree_unflatten
@@ -57,6 +71,9 @@ class FedLMConfig:
     weight_decay: float = 0.1      # g(theta) = wd/2 ||theta||^2
     p: float = 1.0                 # participation probability (A5)
     alpha: float = 0.1             # control-variate step
+    attn_mode: str = "sharded"     # "replicated": attention weights not
+                                   # sharded over 'model' (state_specs)
+    mlp_mode: str = "generic"      # "megatron": row-parallel w_out/wo
     quant_bits: int = 8            # 0 -> no compression
     quant_block: int = 256
     quant_dither: str = "hash"     # the murmur hash of the element index
@@ -174,39 +191,57 @@ def make_problem(model, cfg: FedLMConfig) -> api.MMProblem:
         T=lambda s: T_map(s, cfg))
 
 
-def make_train_step(model, cfg: FedLMConfig, mesh=None):
+def make_train_step(model, cfg: FedLMConfig, mesh=None,
+                    client_axis: str = "clients", uplink: str = "gather"):
     """Returns ``train_step(state, batch, key, gamma, **draws) -> (state,
     metrics)``. ``batch``: {"tokens": (n_clients, B_local, S), "labels":
-    ...}; ``key``: the round's ``torch.Generator`` (participation, then the
-    per-client, per-leaf dither seeds); ``draws``: ``active=``/``seeds=``
-    handed to ``api.step`` in place of the key's draws.
+    ...} (on a mesh, the rank's rows of the client dim); ``key``: the
+    round's ``torch.Generator`` (participation, then the per-client,
+    per-leaf dither seeds; every rank draws the whole round); ``draws``:
+    ``active=``/``seeds=`` handed to ``api.step`` in place of the key's
+    draws.
 
-    The round is one ``api.step`` on the driver's ``client_mode="scan"``
-    (the module docstring says why); ``mesh=`` raises
-    ``NotImplementedError`` (ROADMAP Queue A item 11g)."""
+    Without a mesh the round is one ``api.step`` on the driver's
+    ``client_mode="scan"`` (the module docstring says why), and
+    ``uplink="reduce"`` raises there, as the reference's does. With
+    ``mesh=`` physical silos take the driver's mesh path with the rank's
+    clients run in sequence, ``uplink`` passing through (``"gather"`` or
+    ``"reduce"``); logical clients on a mesh raise ``ValueError``. The
+    metrics carry ``collective_payload_bytes`` on a mesh."""
     if cfg.client_mode not in ("physical", "logical"):
         raise ValueError(f"client_mode={cfg.client_mode!r} (want "
                          f"'physical' or 'logical')")
     if mesh is not None:
-        raise NotImplementedError(
-            "the trainer on a mesh (physical silos sharded over mesh axes, "
-            "the model over FSDP/TP) is ROADMAP Queue A item 11g")
+        if not isinstance(mesh, DeviceMesh):
+            raise TypeError(f"mesh= takes a torch.distributed.device_mesh."
+                            f"DeviceMesh, got {type(mesh).__name__}")
+        if cfg.client_mode == "logical":
+            raise ValueError(
+                "logical clients run in sequence on one device (the "
+                "driver's client_mode='scan'), which has no mesh path — "
+                "drop mesh= or use client_mode='physical'")
     spec = cfg.federation_spec()
     use_cv = spec.use_variates
     problem = make_problem(model, cfg)
     device = model.device
+    route = (dict(client_mode="scan") if mesh is None else
+             dict(client_mode="vmap", mesh=mesh, client_axis=client_axis,
+                  _oracle_loop=True))
 
     def train_step(state: FedLMState, batch, key, gamma, **draws):
         dstate = api.DriverState(x=state.s_hat, v=state.v, v_i=state.v_i,
                                  aux=(), opt=state.opt, step=state.step)
         new, m = api.step(problem, spec, dstate, batch, gamma, key,
-                          device=device, client_mode="scan",
-                          drift_metric=False, **draws)
+                          device=device, uplink=uplink, drift_metric=False,
+                          **route, **draws)
         # the reference's metric names: e_s is ||h||^2, loss the mean of
         # the clients' losses
         metrics = {"loss": m["loss"], "e_s": m["h_norm_sq"],
                    "n_active": m["n_active"], "comm_bytes": m["comm_bytes"],
                    "omega_eff": m["omega_eff"]}
+        if "collective_payload_bytes" in m:
+            metrics["collective_payload_bytes"] = \
+                m["collective_payload_bytes"]
         return FedLMState(
             s_hat=new.x,
             v=new.v if use_cv else state.v,
@@ -214,3 +249,42 @@ def make_train_step(model, cfg: FedLMConfig, mesh=None):
             step=new.step, opt=new.opt), metrics
 
     return train_step
+
+
+# ---------------------------------------------------------------------------
+# the layout of the state and the batches (for the dry run)
+# ---------------------------------------------------------------------------
+
+def state_specs(params_shapes, cfg: FedLMConfig, fsdp, tp="model",
+                fsdp_size=16, tp_size=16):
+    """Spec trees (``models.sharding``) of ``(s_hat, v, v_i)`` for the
+    parameters ``params_shapes`` (a tree of real, fake or meta tensors).
+    physical: the client dim over the fsdp axes, inner dims over tp only;
+    logical: the client dim unsharded, inner dims over (fsdp, tp). Without
+    variates ``v`` and ``v_i`` are ``()``."""
+    use_cv = cfg.federation_spec().use_variates
+    if cfg.client_mode == "physical":
+        pspec = shd.param_specs(params_shapes, fsdp=(), fsdp_size=10**9,
+                                tp=tp, tp_size=tp_size,
+                                attn_mode=cfg.attn_mode,
+                                mlp_mode=cfg.mlp_mode)
+        lead = fsdp
+    else:
+        pspec = shd.param_specs(params_shapes, fsdp=fsdp, fsdp_size=fsdp_size,
+                                tp=tp, tp_size=tp_size,
+                                attn_mode=cfg.attn_mode,
+                                mlp_mode=cfg.mlp_mode)
+        lead = None
+    if not use_cv:
+        return pspec, (), ()
+    vi_spec = tree_map(lambda s: shd.canonical((lead,) + s), pspec,
+                       is_leaf=shd.is_spec)
+    return pspec, pspec, vi_spec
+
+
+def batch_spec(cfg: FedLMConfig, fsdp) -> tuple:
+    """The spec of ``tokens`` (n, B_local, S): physical -> the client dim
+    over the client axes; logical -> the local-batch dim over them."""
+    if cfg.client_mode == "physical":
+        return shd.canonical((fsdp, None, None))
+    return shd.canonical((None, fsdp, None))

@@ -11,8 +11,8 @@ bit. ``model_params_to_torch`` carries a model's weights across and
 ``model_params_to_numpy`` brings a per-layer tree (weights or their
 gradients) back to the reference's layout; ``fedlm_state_to_torch``
 carries the LM trainer's state, ``ot_state_to_torch`` the FedMM-OT and
-FedAdam states, and ``state_for_rank`` a whole driver state to one rank
-of a mesh.
+FedAdam states, and ``state_for_rank`` and ``fedlm_state_for_rank`` a
+whole driver or LM trainer state to one rank of a mesh.
 """
 from __future__ import annotations
 
@@ -75,6 +75,20 @@ def state_for_rank(state, spec, mesh, client_axis: str = "clients",
     from .api.driver import local_rows
     lo, hi = local_rows(spec, mesh, client_axis)
     ours = state_to_torch(state, device)
+    return ours._replace(v_i=tree_map(lambda x: x[lo:hi], ours.v_i))
+
+
+def fedlm_state_for_rank(state: FedLMState, spec, mesh,
+                         client_axis: str = "clients",
+                         device=None) -> FedLMState:
+    """A whole ``FedLMState`` (the port's, or ``fedlm_state_to_torch``'s)
+    -> this rank's layout on ``mesh``: ``s_hat``, ``v``, ``opt`` and
+    ``step`` whole, the rows of ``v_i`` that the rank's clients own
+    (``api.local_rows`` of the trainer's ``FederationSpec``), on ``device``
+    (the GPU unless asked otherwise)."""
+    from .api.driver import local_rows
+    lo, hi = local_rows(spec, mesh, client_axis)
+    ours = FedLMState(*(to_torch(f, device) for f in state))
     return ours._replace(v_i=tree_map(lambda x: x[lo:hi], ours.v_i))
 
 

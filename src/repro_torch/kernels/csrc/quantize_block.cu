@@ -10,7 +10,11 @@
 //                     per group; the dequantized array is never written.
 //   qb_decode_reduce  replaces decode_reduce_grouped_pallas
 //                     (_decode_reduce_kernel): sum_c w_c * dequant(codes_c,
-//                     scales_c) with c walked in order inside the thread.
+//                     scales_c) with c walked in order inside the thread;
+//                     for a bf16 leaf each dequantized element is first
+//                     rounded to bf16, as decode rounds it to the leaf's
+//                     dtype (the reference keeps such leaves off its
+//                     kernel and reduces the decoded stack).
 //
 // Layout (all three): an (R, D) row-major view whose quantization groups of
 // g elements run along the last axis (D % g == 0). qb_quantize and
@@ -49,6 +53,16 @@ constexpr int kThreads = 256;                 // 8 warps per block
 constexpr int kWarpsPerBlock = kThreads / 32;
 constexpr int kReduceElems = 16;              // elements per thread (reduce)
 constexpr int kHeld = 2;                      // chunks kept in registers
+
+// x rounded to the nearest bfloat16 (ties to even), as a float: what
+// torch's float32 -> bfloat16 conversion gives. An infinity stays one and a
+// NaN stays a NaN (adding at most 0x8000 to a NaN's bits cannot clear its
+// exponent, and its payload keeps a bit in the upper half).
+__device__ __forceinline__ float round_to_bf16(float x) {
+  uint32_t u = __float_as_uint(x);
+  u += 0x7FFFu + ((u >> 16) & 1u);
+  return __uint_as_float(u & 0xFFFF0000u);
+}
 
 __device__ __forceinline__ uint32_t murmur_u32(uint32_t idx, uint32_t seed) {
   // uint32_t: every multiply and add wraps mod 2^32, like the reference
@@ -206,6 +220,10 @@ quant_kernel(const float* __restrict__ x, const float* __restrict__ u,
 // deq_c, the reference's order. No atomics, no shared memory: the result
 // is deterministic and the decoded C-client stack never exists in memory.
 //
+// round_bf16 (a bf16 leaf): each dequantized element is rounded to bf16
+// before its weight multiplies it, so the sum is decode's bf16 stack
+// reduced in float32; the flag is uniform over the grid.
+//
 // Bound on the H100 (3.35 TB/s): C (n + 4 n / g) bytes read, 4 n written;
 // at n = 91,750,400, g = 256, C = 16 that is 20.25 n = 1.86 GB, 0.555 ms.
 // Memory bound: 6 float operations per element and client.
@@ -213,7 +231,8 @@ __global__ void __launch_bounds__(kThreads)
 decode_reduce_kernel(const int8_t* __restrict__ codes,
                      const float* __restrict__ scales,
                      const float* __restrict__ w, float* __restrict__ out,
-                     int n_clients, long long n, int group, float inv_levels) {
+                     int n_clients, long long n, int group, float inv_levels,
+                     int round_bf16) {
   const long long e =
       (static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x) *
       kReduceElems;
@@ -230,10 +249,11 @@ decode_reduce_kernel(const int8_t* __restrict__ codes,
     const float wc = w[c];
 #pragma unroll
     for (int j = 0; j < kReduceElems; ++j) {
-      const float deq =
+      float deq =
           live ? __fmul_rn(__fmul_rn(static_cast<float>(q[j]), safe),
                            inv_levels)
                : 0.0f;
+      if (round_bf16) deq = round_to_bf16(deq);
       const float contrib = __fmul_rn(wc, deq);
       // o = w_0 deq_0, then o = o + w_c deq_c: a separate multiply and add
       // (no fma), and c == 0 assigns rather than adds to 0 (keeps -0.0)
@@ -568,8 +588,8 @@ int qb_encode(const float* x, const float* u, int8_t* codes, float* scales,
 
 int qb_decode_reduce(const int8_t* codes, const float* scales, const float* w,
                      float* out, int n_clients, long long rows,
-                     long long cols, int group, int bits, int device,
-                     void* stream) {
+                     long long cols, int group, int bits, int round_bf16,
+                     int device, void* stream) {
   if (bad_shape(rows, cols, group, bits, false) || n_clients < 1)
     return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
@@ -579,7 +599,8 @@ int qb_decode_reduce(const int8_t* codes, const float* scales, const float* w,
   const long long per_block = static_cast<long long>(kThreads) * kReduceElems;
   const dim3 grid(static_cast<unsigned>((n + per_block - 1) / per_block));
   decode_reduce_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      codes, scales, w, out, n_clients, n, group, inv_levels_of(bits));
+      codes, scales, w, out, n_clients, n, group, inv_levels_of(bits),
+      round_bf16);
   return static_cast<int>(cudaGetLastError());
 }
 

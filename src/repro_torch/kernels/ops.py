@@ -63,12 +63,14 @@ def quantize_encode_kernel_dither(x2, seed, bits: int = 8, group: int = 256):
 
 
 def dequantize_reduce_grouped(codes, scales, w, bits: int = 8,
-                              group: int = 256):
+                              group: int = 256, round_to=None):
     """``sum_c w[c] * dequant(codes[c], scales[c])`` without the decoded
     client stack: codes (C, R, D) int8, scales (C, R, D // group) f32,
-    w (C,) f32."""
+    w (C,) f32; ``round_to=torch.bfloat16`` rounds each dequantized
+    element to bf16 first (a bf16 leaf's decode)."""
     return qb.decode_reduce_grouped(codes, scales, w.to(torch.float32),
-                                    bits=bits, group=group)
+                                    bits=bits, group=group,
+                                    round_to=round_to)
 
 
 def _tpu_tiles_at_default(**given) -> None:

@@ -12,7 +12,10 @@ Counterparts of the Pallas kernels in ``repro/kernels/quantize_block.py``:
   ``(R, D / g)``;
 * ``decode_reduce_grouped``  <- ``decode_reduce_grouped_pallas``:
   ``sum_c w_c * dequant(codes_c, scales_c)`` over a stacked ``C``-client
-  payload, accumulated in ``c`` order without the decoded stack.
+  payload, accumulated in ``c`` order without the decoded stack; with
+  ``round_to=torch.bfloat16`` each dequantized element is rounded to bf16
+  first, as ``decode`` rounds a bf16 leaf (the reference keeps such
+  leaves off its kernel).
 
 Each wrapper takes its plain version for tensors on the CPU (and for
 shape-only ``meta`` tensors), launches its kernel for CUDA tensors, and
@@ -88,7 +91,7 @@ def _lib():
         _LIB = B.load(SOURCE, NVCC_FLAGS, {
             "qb_quantize": [P, P, P, LL, LL, I, I, U, I, I, P],
             "qb_encode": [P, P, P, P, LL, LL, I, I, U, I, I, P],
-            "qb_decode_reduce": [P, P, P, P, I, LL, LL, I, I, I, P]})
+            "qb_decode_reduce": [P, P, P, P, I, LL, LL, I, I, I, I, P]})
     return _LIB
 
 
@@ -170,15 +173,19 @@ def quantize_encode_grouped_plain(x2, u2=None, *, bits=8, group=256,
     return codes.reshape(R, D), scales.reshape(R, D // group)
 
 
-def decode_reduce_grouped_plain(codes, scales, w, *, bits=8, group=256):
+def decode_reduce_grouped_plain(codes, scales, w, *, bits=8, group=256,
+                                round_to=None):
     """The reference's sequential-in-c accumulation: o = w_0 * deq_0, then
-    o = o + w_c * deq_c."""
+    o = o + w_c * deq_c; ``round_to`` (bf16) rounds each deq_c to it
+    first."""
     C, R, D = codes.shape
     out = None
     for c in range(C):
         deq = ref.decode_groups_ref(
             codes[c].reshape(R, D // group, group),
             scales[c].reshape(R, D // group, 1), bits=bits).reshape(R, D)
+        if round_to is not None:
+            deq = deq.to(round_to).to(torch.float32)
         contrib = w[c] * deq
         out = contrib if out is None else out + contrib
     return out
@@ -240,10 +247,14 @@ def quantize_encode_grouped(x2, u2=None, *, bits: int = 8, group: int = 256,
 
 
 def decode_reduce_grouped(codes, scales, w, *, bits: int = 8,
-                          group: int = 256):
+                          group: int = 256, round_to=None):
     """``sum_c w[c] * dequant(codes[c], scales[c])``: codes (C, R, D) int8,
     scales (C, R, D // group) float32, w (C,) float32 -> (R, D) float32,
-    accumulated in c order."""
+    accumulated in c order. ``round_to``: None, or ``torch.bfloat16`` to
+    round each dequantized element to bf16 before it is weighted."""
+    if round_to not in (None, torch.bfloat16):
+        raise ValueError(f"round_to takes None or torch.bfloat16, got "
+                         f"{round_to}")
     if codes.ndim != 3:
         raise ValueError(f"codes must be (C, R, D), got {tuple(codes.shape)}")
     C, R, D = codes.shape
@@ -256,7 +267,7 @@ def decode_reduce_grouped(codes, scales, w, *, bits: int = 8,
     if B.route(codes, "quantizer") == "plain":
         return decode_reduce_grouped_plain(codes, scales,
                                            w.to(torch.float32), bits=bits,
-                                           group=group)
+                                           group=group, round_to=round_to)
     if not reduce_group_ok(group):
         raise ValueError(f"the CUDA kernel takes groups that are a multiple "
                          f"of 128, got {group}")
@@ -266,7 +277,8 @@ def decode_reduce_grouped(codes, scales, w, *, bits: int = 8,
     out = torch.empty((R, D), dtype=torch.float32, device=codes.device)
     rc = _lib().qb_decode_reduce(
         codes.data_ptr(), scales.data_ptr(), w.data_ptr(), out.data_ptr(),
-        C, R, D, group, bits, codes.device.index or 0, B.stream_of(codes))
+        C, R, D, group, bits, int(round_to is not None),
+        codes.device.index or 0, B.stream_of(codes))
     B.check(rc, "decode_reduce")
     LAUNCHES["decode_reduce"] += 1
     return out

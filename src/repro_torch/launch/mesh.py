@@ -1,6 +1,14 @@
-"""Device meshes for the federated driver (the counterpart of
-``repro/launch/mesh.py``): the 2-D ``(edge, client)`` mesh of the two-tier
-topology and the cohort capacity of a mesh.
+"""Device meshes (the counterpart of ``repro/launch/mesh.py``): the
+production mesh and its logical-axis rules, the 2-D ``(edge, client)``
+mesh of the two-tier topology and the cohort capacity of a mesh.
+
+The production mesh is the reference's shape and names: 256 ranks as
+(16, 16) ``("data", "model")``, or 512 as (2, 16, 16) ``("pod", "data",
+"model")`` (pods are the federated silos). ``client_axes`` names the
+client (batch, silo) dims and ``axis_rules`` the logical-axis rules that
+``models.sharding.install_rules`` takes. The reference's TPU v5e
+constants for its roofline are not ported: the H100's roofline belongs
+to ``launch/roofline.py`` (ROADMAP Queue A item 12).
 
 A mesh here is a ``torch.distributed.device_mesh.DeviceMesh`` over the
 ranks of the default process group, which the caller starts
@@ -11,12 +19,57 @@ touches no process group.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
 from ..api.collective import mesh_shape
 from ..api.driver import resolve_device
+
+
+def _require_group(what: str) -> int:
+    if not dist.is_initialized():
+        raise RuntimeError(f"{what} needs a started process group "
+                           f"(torch.distributed.init_process_group with its "
+                           f"address, world size and rank)")
+    return dist.get_world_size()
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device=None) -> DeviceMesh:
+    """The (16, 16) ``("data", "model")`` mesh, or with ``multi_pod`` the
+    (2, 16, 16) ``("pod", "data", "model")`` one, over the first 256 or
+    512 ranks of the started process group, on the GPU unless
+    ``device="cpu"``. Raises when the world is smaller."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    n = math.prod(shape)
+    world = _require_group("make_production_mesh")
+    if world < n:
+        raise ValueError(f"the production mesh {shape} {axes} needs {n} "
+                         f"ranks, the process group has {world}")
+    return DeviceMesh(resolve_device(device).type,
+                      torch.arange(n).reshape(shape), mesh_dim_names=axes)
+
+
+def client_axes(multi_pod: bool):
+    """The federated-client mesh axes (batch / silo axes)."""
+    return ("pod", "data") if multi_pod else ("data",)
+
+
+def axis_rules(multi_pod: bool) -> dict:
+    """Logical-axis -> mesh-axis rules installed for activations."""
+    fsdp = client_axes(multi_pod)
+    return {
+        "batch": fsdp,
+        "clients": fsdp,
+        "ff": "model",
+        "vocab": "model",
+        "experts": "model",
+        "cache_seq": "model",
+    }
 
 
 def make_edge_mesh(n_edges: int, clients_per_edge: int = None, *,
@@ -31,11 +84,7 @@ def make_edge_mesh(n_edges: int, clients_per_edge: int = None, *,
     block of the client axis: the edge-major order ``Topology.edge_ids``
     assigns. A reduce over ``client_axis`` then sums within each edge and
     a reduce over ``edge_axis`` across edges."""
-    if not dist.is_initialized():
-        raise RuntimeError("make_edge_mesh needs a started process group "
-                           "(torch.distributed.init_process_group with its "
-                           "address, world size and rank)")
-    world = dist.get_world_size()
+    world = _require_group("make_edge_mesh")
     if n_edges < 1:
         raise ValueError(f"n_edges must be >= 1, got {n_edges}")
     if clients_per_edge is None:

@@ -58,6 +58,16 @@ inline float __fdiv_rn(float a, float b) { return a / b; }
 inline float __fmul_rn(float a, float b) { return a * b; }
 inline float __fadd_rn(float a, float b) { return a + b; }
 inline float __fsub_rn(float a, float b) { return a - b; }
+inline unsigned __float_as_uint(float x) {
+  unsigned u;
+  __builtin_memcpy(&u, &x, sizeof u);
+  return u;
+}
+inline float __uint_as_float(unsigned u) {
+  float x;
+  __builtin_memcpy(&x, &u, sizeof x);
+  return x;
+}
 
 typedef struct CUstream_st* cudaStream_t;
 enum cudaError_t {

@@ -147,6 +147,50 @@ def test_decode_reduce_matches_reference(shard_safe, bits, route):
             rtol=1e-5, atol=1e-6)
 
 
+@pytest.mark.parametrize("shard_safe", [False, True])
+@pytest.mark.parametrize("route", sorted(ROUTES))
+def test_decode_reduce_bf16_matches_reference(monkeypatch, shard_safe, route):
+    """bf16 leaves: the reduce is float32 (the bf16 decode promoted, as
+    ``jnp.tensordot`` promotes it) and follows the reference's
+    decode-then-tensordot; on the kernel route the port's fused decode +
+    reduce (which the reference keeps to float32 leaves) rounds each
+    dequantized element to bf16, as decode does, so it agrees to float32
+    reduction order."""
+    calls = []
+    orig = tqb.decode_reduce_grouped
+
+    def spy(*a, **kw):
+        calls.append(kw.get("round_to"))
+        return orig(*a, **kw)
+    monkeypatch.setattr(tqb, "decode_reduce_grouped", spy)
+    jc, tc = _pair(bits=8, block=256, dither="hash", shard_safe=shard_safe,
+                   kernel_threshold=ROUTES[route])
+    tree = _tree(4)
+    jt = {k: jnp.asarray(v).astype(jnp.bfloat16) for k, v in tree.items()}
+    tt = {k: torch.from_numpy(v).to(torch.bfloat16) for k, v in tree.items()}
+    keys = jax.random.split(KEY, 3)
+    jstack = jax.tree.map(lambda *xs: jnp.stack(xs),
+                          *[jc.encode(k, jt) for k in keys])
+    tstack = TC.stack_payloads([tc.encode(leaf_seeds(k, 3), tt)
+                                for k in keys])
+    w = np.array([0.5, 0.0, 0.25], np.float32)
+    jr = jc.decode_reduce(jstack, jnp.asarray(w))
+    tr = tc.decode_reduce(tstack, torch.from_numpy(w))
+    dec = tc.decode(tstack)
+    for k in tree:
+        assert tr[k].dtype == torch.float32, k
+        np.testing.assert_allclose(tr[k].numpy(), np.asarray(jr[k]),
+                                   rtol=1e-6, atol=1e-7, err_msg=k)
+        np.testing.assert_allclose(
+            tr[k].numpy(), torch.tensordot(torch.from_numpy(w),
+                                           dec[k].float(), dims=1).numpy(),
+            rtol=1e-6, atol=1e-7, err_msg=k)
+    # flat groups of 256: "w" and "a" on the kernel route, their decode
+    # rounded to bf16 (shard-safe groups here are 16 and 8: no kernel)
+    assert calls == ([torch.bfloat16] * 2
+                     if route == "kernel" and not shard_safe else [])
+
+
 def test_verify_and_zero_invalid_rows():
     tc = TC.block_quant(8, 256, dither="hash", checksum=True)
     tree = to_torch(_tree())

@@ -76,8 +76,10 @@ def test_kernels_match_plain(bits, rows, cols, group):
         assert torch.equal(_bits(got), _bits(want))
 
 
+@pytest.mark.parametrize("round_to", [None, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
 @pytest.mark.parametrize("group", [256, 2048])
-def test_reduce_matches_plain(group):
+def test_reduce_matches_plain(group, round_to):
     dev = _cuda()
     rng = np.random.default_rng(2)
     codes = torch.from_numpy(
@@ -86,9 +88,10 @@ def test_reduce_matches_plain(group):
         rng.random((16, 8, 4096 // group)).astype(np.float32)).to(dev)
     scales[0, 1, 0] = 0.0
     w = torch.from_numpy(rng.random(16).astype(np.float32)).to(dev)
-    got = tqb.decode_reduce_grouped(codes, scales, w, bits=8, group=group)
+    got = tqb.decode_reduce_grouped(codes, scales, w, bits=8, group=group,
+                                    round_to=round_to)
     want = tqb.decode_reduce_grouped_plain(codes, scales, w, bits=8,
-                                           group=group)
+                                           group=group, round_to=round_to)
     assert torch.equal(_bits(got), _bits(want))
 
 

@@ -328,3 +328,92 @@ def test_train_lm_example_on_the_card():
     assert all(np.isfinite(losses))
     before, after = _heldout_losses("rwkv6-3b", "100m", out["state"])
     assert after < before
+
+
+def _one_rank_nccl():
+    """A one-rank NCCL process group in this process, and its mesh."""
+    import datetime
+    import socket
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=60))
+    return init_device_mesh("cuda", (1,), mesh_dim_names=("clients",))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_trainer_on_a_one_rank_nccl_mesh(dtype):
+    """gemma3-12b's reduced config (bf16 with 16 heads of 256, so that
+    each layer's ``wq`` (128, 4096) has the shard-safe group 128 of the
+    fused decode + reduce), physical silos, 2 clients, p 1, variates off,
+    ``block_quant(8, 256, "hash")``: each of 2 rounds stepped from the
+    off-mesh run's state with the same draws, on a one-rank NCCL mesh with
+    the gather and the reduce uplink. With two clients of weight 1/2 each
+    sum is exact before its one rounding, so both are held to the
+    off-mesh round at rtol 1e-5 / atol 1e-6 (f32) or one bf16 rounding of
+    the new iterate and of its step (bf16); the reduce launches one
+    ``qb_decode_reduce`` a ``wq`` in bf16; the collective's bytes are the
+    gathered stack's and the float32 partial's."""
+    import dataclasses
+    import torch.distributed as dist
+    from repro_torch import api, configs
+    from repro_torch.core import compression as C
+    from repro_torch.fed import trainer as FT
+    from repro_torch.kernels import quantize_block as qb
+    from repro_torch.launch.train import sample_batch
+    from repro_torch.models.model import build_model
+    _cuda()
+    cfg = configs.get("gemma3-12b").reduced()
+    if dtype == "bfloat16":
+        cfg = dataclasses.replace(cfg, dtype=dtype, n_heads=16, n_kv_heads=8,
+                                  head_dim=256)
+    model = build_model(cfg, device="cuda")
+    fcfg = FT.FedLMConfig(n_clients=2, rho=0.05, p=1.0, use_cv=False,
+                          client_mode="physical")
+    spec = fcfg.federation_spec()
+    state = FT.init_state(model, torch.Generator(device="cuda").manual_seed(0),
+                          fcfg)
+    n_leaves = len(tree_leaves(state.s_hat))
+    comp = spec.compressor
+    payload = comp.payload_bytes(state.s_hat)
+    params = sum(x.numel() for x in tree_leaves(state.s_hat))
+    wq = sum(1 for layer in state.s_hat["layers"]
+             if C.group_size(layer["attn"]["wq"].shape[-1], 256) == 128)
+    assert wq == (2 if dtype == "bfloat16" else 0)
+    mesh = _one_rank_nccl()
+    try:
+        off = FT.make_train_step(model, fcfg)
+        steps = {u: FT.make_train_step(model, fcfg, mesh=mesh, uplink=u)
+                 for u in ("gather", "reduce")}
+        gen = torch.Generator().manual_seed(3)
+        for t in range(2):
+            batch = sample_batch(torch.Generator().manual_seed(t), cfg, 2, 1,
+                                 64, "cuda")
+            active, seeds = api.participation_draw(gen, spec, n_leaves)
+            ref, _ = off(state, batch, None, 0.5, active=active, seeds=seeds)
+            for uplink, step in steps.items():
+                qb.reset_launches()
+                got, m = step(state, batch, None, 0.5, active=active,
+                              seeds=seeds)
+                torch.cuda.synchronize()
+                for a, b, x in zip(tree_leaves(got.s_hat),
+                                   tree_leaves(ref.s_hat),
+                                   tree_leaves(state.s_hat)):
+                    a, b, x = a.float(), b.float(), x.float()
+                    if dtype == "float32":
+                        assert torch.allclose(a, b, rtol=1e-5, atol=1e-6)
+                    else:
+                        tol = 2.0 ** -7 * (b.abs() + (b - x).abs())
+                        assert bool(((a - b).abs() <= tol).all())
+                stack = 2 * payload if uplink == "gather" else 4 * params
+                assert float(m["collective_payload_bytes"]) == stack
+                launched = qb.LAUNCHES["decode_reduce"]
+                assert launched == (wq if uplink == "reduce" else 0), uplink
+            state = ref
+    finally:
+        dist.destroy_process_group()

@@ -6,8 +6,9 @@ runtime header of ``tests/cuda_stub/`` (one host thread per CUDA thread,
 ``__shfl_xor_sync`` through a per-warp array and barrier, the ``__f*_rn``
 intrinsics as IEEE operations, a device of two SMs that hold one block
 each, so a grid-stride loop wraps); only its ``<<<...>>>`` launches are
-rewritten to the stub's launcher. The library's ``qb_encode`` and
-``qb_quantize`` are called through ctypes with CPU tensors' pointers. The
+rewritten to the stub's launcher. The library's ``qb_encode``,
+``qb_quantize`` and ``qb_decode_reduce`` (float32 and bf16-rounded) are
+called through ctypes with CPU tensors' pointers. The
 outputs sit in buffers with a guard region past their end, which must come
 back untouched. Runs where ``g++`` is found (about 15 s)::
 
@@ -67,7 +68,10 @@ def lib(tmp_path_factory):
     handle = ctypes.CDLL(str(so))
     handle.qb_quantize.argtypes = [P, P, P, LL, LL, I, I, U, I, I, P]
     handle.qb_encode.argtypes = [P, P, P, P, LL, LL, I, I, U, I, I, P]
+    handle.qb_decode_reduce.argtypes = [P, P, P, P, I, LL, LL, I, I, I, I,
+                                        P]
     handle.qb_quantize.restype = handle.qb_encode.restype = I
+    handle.qb_decode_reduce.restype = I
     return handle
 
 
@@ -149,3 +153,35 @@ def test_emulated_source_refuses_bad_groups(lib):
     out = torch.empty_like(x)
     assert lib.qb_quantize(x.data_ptr(), None, out.data_ptr(), 2, 96, 48, 8,
                            1, 1, 0, None) == 1  # cudaErrorInvalidValue
+
+
+@pytest.mark.parametrize("round_to", [None, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("group", [128, 256])
+def test_emulated_decode_reduce_matches_plain(lib, group, round_to):
+    """The decode + reduce over 3 clients (one dropped group, one client
+    weighted 0), its dequantized elements as they are or rounded to bf16
+    (a bf16 leaf's decode), bit for bit the plain version's, over a grid
+    that wraps and with a guard past the output."""
+    rng = np.random.default_rng(group)
+    C, R, D = 3, 5, 2 * group
+    codes = torch.from_numpy(rng.integers(-127, 128, (C, R, D))
+                             .astype(np.int8))
+    scales = torch.from_numpy((rng.random((C, R, D // group)) * 7.0)
+                              .astype(np.float32))
+    scales[1, 2, 0] = 0.0
+    w = torch.tensor([0.3, 0.0, 0.7], dtype=torch.float32)
+    obuf, out = _guarded(R * D, torch.float32)
+    rc = lib.qb_decode_reduce(codes.data_ptr(), scales.data_ptr(),
+                              w.data_ptr(), out.data_ptr(), C, R, D, group,
+                              8, int(round_to is not None), 0, None)
+    assert rc == 0, f"launch returned cudaError {rc}"
+    tail = obuf[-GUARD:]
+    assert torch.equal(tail, torch.full_like(tail, SENTINEL))
+    want = tqb.decode_reduce_grouped_plain(codes, scales, w, bits=8,
+                                           group=group, round_to=round_to)
+    assert torch.equal(_bits(out.view(R, D)), _bits(want))
+    if round_to is not None:
+        plain32 = tqb.decode_reduce_grouped_plain(codes, scales, w, bits=8,
+                                                  group=group)
+        assert not torch.equal(want, plain32), "the rounding changed nothing"

@@ -480,11 +480,33 @@ def test_t_map_choose_client_layout_and_param_count():
 
 
 def test_physical_mode_with_a_mesh_raises():
+    """What the trainer refuses on a mesh: a mesh that is not a
+    ``DeviceMesh`` (``TypeError``) and logical clients on one
+    (``ValueError``, as the reference's ``api.step`` refuses its sequential
+    mode on a mesh); physical silos take it (``tests/test_torch_train_
+    mesh.py`` runs them), and without a mesh run in sequence, as
+    logical."""
+    import datetime
+    import socket
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
     _, tm, _, tf, _ = _trainer_pair("phi3-medium-14b", quant_bits=0)
     physical = dataclasses.replace(tf, client_mode="physical")
-    with pytest.raises(NotImplementedError, match="11g"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         TFT.make_train_step(tm, physical, mesh=object())
-    # without a mesh, physical runs the clients in sequence, as logical
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=60))
+    try:
+        mesh = init_device_mesh("cpu", (1,), mesh_dim_names=("clients",))
+        with pytest.raises(ValueError, match="logical"):
+            TFT.make_train_step(tm, tf, mesh=mesh)
+        TFT.make_train_step(tm, physical, mesh=mesh)
+    finally:
+        dist.destroy_process_group()
     TFT.make_train_step(tm, physical)
 
 
