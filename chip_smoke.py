@@ -85,7 +85,14 @@ points at full width and checks what comes out:
    each round from one state with the same draws (the fused decode +
    reduce on each layer's ``wq`` in every reduce round);
    ``repro_torch.launch.train`` at the ``100m`` and ``smoke`` presets,
-   and three smoke rounds on the card against the CPU.
+   and three smoke rounds on the card against the CPU;
+5. the roofline (the ``roofline`` phase, the card idle): each timed
+   prefill and train round beside the same step counted on ``meta``
+   tensors at one chip (the dry run's ``count_serve`` and
+   ``count_train_step``) in a child process that starts beside the
+   kernels' build and counts once the train phase is over; and the dry
+   run's whisper-base ``decode_32k`` (the ``dryrun`` phase), a child
+   process run beside the build and joined here.
 
 Each phase prints one JSON line, and a line on standard error with the
 seconds since the start; the last line is ``{"ok": true,
@@ -110,6 +117,7 @@ one projection instead of the model's 40 layers x 7 matrices.
 """
 from __future__ import annotations
 
+import atexit
 import ctypes
 import json
 import os
@@ -191,10 +199,11 @@ LOOSE_BF16_TOL = {"atol": 3e-2, "rtol": 3e-2}
 
 # the H100 SXM's memory rate, float32 (non-tensor-core) rate and bf16
 # tensor-core rate, from NVIDIA's data sheet: the card the bounds are
-# stated for
-H100_BYTES_PER_S = 3.35e12
-F32_OPS_PER_S = 67e12
-BF16_OPS_PER_S = 989e12
+# stated for (repro_torch.launch.roofline, which the dry run reads too)
+sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+from repro_torch.launch.roofline import (  # noqa: E402
+    HBM_BW as H100_BYTES_PER_S, PEAK_FLOPS_BF16 as BF16_OPS_PER_S,
+    PEAK_FLOPS_F32 as F32_OPS_PER_S)
 
 REPLACES = {
     "quantize": "src/repro/kernels/quantize_block.py:205",
@@ -268,7 +277,9 @@ def progress(what: str) -> None:
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
     if isinstance(obj, dict) and "phase" in obj:
-        progress(f"{obj['phase']} done")
+        took = obj.get("seconds")
+        progress(f"{obj['phase']} done" + (
+            f" ({took:.1f} s)" if isinstance(took, float) else ""))
 
 
 def card_line() -> str:
@@ -1785,7 +1796,7 @@ def gemma3_attention_checks(gen, checks: list) -> dict:
                 keep &= pos[None, :] > pos[:, None] - window
             pairs = int(keep.sum())                       # valid (q, k)
             nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
-            flops = 4 * hd * pairs * B * H
+            flops = fa.forward_flops(B, S, S, H, hd, True, window)
             entry = {"window": window, "pairs": pairs, "flop": flops,
                      "max_abs_err": err}
             entry["bound_ms"], entry["bound_by"] = bound(nbytes, flops,
@@ -1835,9 +1846,11 @@ def attention_times(q, k, v, pairs: int, check: dict,
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
 
-    B, _, H, hd = q.shape
+    B, Sq, H, hd = q.shape
     group = H // k.shape[2]
-    flops = 4 * hd * pairs * B * H
+    flops = fa.forward_flops(B, Sq, k.shape[1], H, hd, causal)
+    require(flops == 4 * hd * pairs * B * H,
+            f"flash's flops {flops} against {pairs} kept pairs")
     out = {"flop": flops}
     out["bound_ms"], out["bound_by"] = bound(
         2 * (2 * q.numel() + k.numel() + v.numel()), flops, BF16_OPS_PER_S)
@@ -2009,7 +2022,7 @@ def lm_kernel_checks():
     # 5 FLOP; the u bonus is rank one, (sum_k r_k u_k k_k) v, 5 FLOP per
     # (step, head, channel)
     scan["bound_ms"], scan["bound_by"] = bound(
-        2 * 5 * n + 4 * (u.numel() + st.numel()), 5 * n * hd + 5 * n,
+        2 * 5 * n + 4 * (u.numel() + st.numel()), rs.forward_flops(*r.shape),
         F32_OPS_PER_S)
     scan["ms"] = time_ms(lambda: rs.rwkv_scan(r, kk, vv, w, u), 10)
     scan["plain_ms"] = time_ms(lambda: rs.rwkv_scan_plain(r, kk, vv, w, u),
@@ -2834,7 +2847,8 @@ def backward_kernel_checks(profile: bool = False):
                 q, k, v, o, lse, do, causal, window), 20),
                  "shape": rec["shape"], "causal": causal, "pairs": pairs}
             t["bound_ms"], t["bound_by"] = bound(
-                nbytes, 10 * hd * pairs * H, BF16_OPS_PER_S)
+                nbytes, fa.backward_flops(q.shape[0], Sq, Sk, H, hd, causal,
+                                          window), BF16_OPS_PER_S)
             t["pct_of_bound"] = 100 * t["bound_ms"] / t["ms"]
             t["plain_ms"] = time_ms(lambda: ref.flash_attention_backward_plain(
                 q, k, v, o, do, causal, window), 2, 1)
@@ -2884,7 +2898,8 @@ def backward_kernel_checks(profile: bool = False):
             # dv, dw, dr (2 each) and G (2): 12 flop, float32; the bytes:
             # r, k, v, w, dy read, four gradients written (bf16), u, du
             t["bound_ms"], t["bound_by"] = bound(
-                2 * 9 * n + 8 * u.numel(), 12 * n * hd, F32_OPS_PER_S)
+                2 * 9 * n + 8 * u.numel(), rs.backward_flops(*r.shape),
+                F32_OPS_PER_S)
             t["plain_ms"] = time_ms(lambda: ref.rwkv_scan_backward_plain(
                 r, kk, vv, w, u, dy), 1, 0)
             t["library_ms"] = None
@@ -3018,6 +3033,10 @@ def train_run(name: str, profile: bool, keep: dict = None) -> dict:
     comp = fcfg.federation_spec().compressor
     payload = comp.payload_bytes(state.s_hat)
     groups, kernel_leaves, small_leaves = _route_leaves(name, leaves)
+    # the counts stay, the first iterate's tensors go with the state: a
+    # list of them kept here would hold a copy of the parameters through
+    # the timed rounds
+    del leaves
     step = FT.make_train_step(model, fcfg)
     data_gen = torch.Generator().manual_seed(SEED)
     round_gen = torch.Generator().manual_seed(SEED + 1)
@@ -3410,15 +3429,17 @@ def train_phase(card: str, profile: bool) -> tuple:
     the full-width train runs (``train_mesh`` after ``train_gemma3``),
     the entry point and the card against the CPU. Emits each part's
     record; returns the backward kernels' rows, each kernel's launches
-    over the train runs and over ``train_mesh``'s mesh rounds."""
+    over the train runs and over ``train_mesh``'s mesh rounds, and each
+    train run's mean seconds a timed round."""
     rec, rows = backward_kernel_checks(profile)
     emit(dict(rec, card=card))
     _free()
-    launches = {}
+    launches, seconds = {}, {}
     for name in TRAIN_RUNS:
         keep = {} if name == TRAIN_MESH_RUN else None
         out = train_run(name, profile, keep)
         emit(dict(out, card=card))
+        seconds[name] = out["mean_seconds_per_round"]
         for k, v in out["launches"].items():
             launches[k] = launches.get(k, 0) + v
         if keep is not None:
@@ -3426,7 +3447,247 @@ def train_phase(card: str, profile: bool) -> tuple:
             emit(dict(mesh_out, card=card))
     emit(dict(entry_point_runs(), card=card))
     emit(dict(train_card_vs_cpu(), card=card))
-    return rows, launches, mesh_out["launches"]
+    return rows, launches, mesh_out["launches"], seconds
+
+
+# ---------------------------------------------------------------------------
+# the roofline of the timed phases, and one dry-run combination
+# ---------------------------------------------------------------------------
+
+# a share of the roofline above this would mean a counting error: no card
+# does its work faster than its peaks allow
+ROOFLINE_SHARE_MAX = 1.05
+# the dry run's quick combination (the reference's own), in a child
+# process started beside the kernels' build (it needs no card, and a fake
+# process group never starts beside NCCL)
+DRYRUN_ARCH, DRYRUN_SHAPE = "whisper-base", "decode_32k"
+# the time limit of the join of each child on the host (the dry run's, the
+# roofline counts')
+CHILD_TIMEOUT_S = 120
+# the argument that makes this script the child of start_roofline, and
+# the processes it counts in
+ROOFLINE_CHILD, ROOFLINE_WORKERS = "--roofline-child", 7
+
+
+def start_dryrun():
+    """``python -m repro_torch.launch.dryrun`` of DRYRUN_ARCH x
+    DRYRUN_SHAPE in a child process (CPU and ``meta`` tensors under a
+    fake process group), its record and output written under ``build/``:
+    (child, record path, output paths)."""
+    root = Path(__file__).resolve().parent
+    out = root / "build" / "dryrun_smoke.json"
+    out.parent.mkdir(exist_ok=True)
+    logs = (out.with_suffix(".out"), out.with_suffix(".err"))
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+           DRYRUN_ARCH, "--shape", DRYRUN_SHAPE, "--out", str(out)]
+    with open(logs[0], "w") as so, open(logs[1], "w") as se:
+        child = subprocess.Popen(cmd, env=env, stdout=so, stderr=se)
+    # a run that fails before the join leaves no child behind
+    atexit.register(lambda: child.poll() is None and child.kill())
+    return child, out, logs
+
+
+def join_dryrun(started) -> dict:
+    """The child of ``start_dryrun``: its summary and record, which must
+    be ``ok``, its combination's seconds and how long the join waited."""
+    child, path, logs = started
+    t0 = time.perf_counter()
+    try:
+        child.wait(timeout=CHILD_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        child.kill()
+        child.wait()
+        raise AssertionError(f"the dry run took over {CHILD_TIMEOUT_S} s")
+    stdout, stderr = (p.read_text() for p in logs)
+    require(child.returncode == 0, f"the dry run failed (exit "
+            f"{child.returncode}): {stdout[-1000:]} {stderr[-2000:]}")
+    record = json.loads(path.read_text())[0]
+    for p in (path,) + logs:
+        p.unlink()
+    require(record["status"] == "ok", f"the dry run's record: {record}")
+    return {"phase": "dryrun", "arch": DRYRUN_ARCH, "shape": DRYRUN_SHAPE,
+            "summary": stdout.strip().splitlines()[-1],
+            "status": record["status"],
+            "combination_seconds": record["seconds"],
+            "wait_seconds": time.perf_counter() - t0,
+            "flops_per_device": record["flops_per_device"],
+            "collectives": record["collectives"],
+            "memory": record["memory"], "roofline": record["roofline"]}
+
+
+def _counted_row(cfg, shape, n_params: int, flops: float,
+                 **bytes_kw) -> dict:
+    """One phase's roofline at one chip: its counted flops and the
+    reference's estimate, the compute and memory terms at the card's
+    peaks."""
+    from repro_torch.launch import roofline as RL
+    compute_s = flops / RL.PEAK_FLOPS_BF16
+    memory_s = RL.analytic_bytes(cfg, shape, n_params, dp=1, tp=1,
+                                 n_chips=1, **bytes_kw) / RL.HBM_BW
+    return {"flops": flops,
+            "model_flops": RL.model_flops_estimate(cfg, shape, n_params),
+            "compute_s": compute_s, "memory_s": memory_s,
+            "dominant": "compute" if compute_s >= memory_s else "memory"}
+
+
+def _phase_of(name: str):
+    """(cfg, InputShape, analytic_bytes keywords, clients) of a timed serve
+    prefill or train round."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.configs.base import InputShape
+    if name in SERVE_RUNS:
+        run = SERVE_RUNS[name]
+        cfg = dataclasses.replace(configs.get(run["arch"]),
+                                  **(run.get("overrides") or {}))
+        shape = InputShape(name, run.get("prompt_len", PROMPT_LEN),
+                           run.get("batch_size", SERVE_BATCH), "prefill")
+        return cfg, shape, {}, 0
+    arch, layers, n, _, seq = TRAIN_RUNS[name]
+    cfg = dataclasses.replace(configs.get(arch), n_layers=layers)
+    return (cfg, InputShape(name, seq, n, "train"),
+            {"n_clients": n, "client_mode": "logical"}, n)
+
+
+def roofline_tasks(names) -> list:
+    """The counts that give the serve prefills and train rounds ``names``
+    (of SERVE_RUNS and TRAIN_RUNS), each at its own depth, batch and
+    length: (name, weight, cfg, layer kinds, clients) for each point of
+    the dry run's ``depth_line`` and, for a round, its ``client_line``
+    (clients 0: a prefill); a phase's counts are the weighted sum of its
+    points'."""
+    from repro_torch.launch import dryrun as D
+    tasks = []
+    for name in names:
+        cfg, _, _, n = _phase_of(name)
+        clients = D.client_line(n) if n else [(1.0, 0)]
+        for wd, cfg_d, pattern in D.depth_line(cfg):
+            tasks += [(name, wd * wc, cfg_d, pattern, m) for wc, m in clients]
+    return tasks
+
+
+def roofline_count(task) -> dict:
+    """One point of ``roofline_tasks`` counted on ``meta`` tensors at one
+    chip (the dry run's ``count_serve`` or ``count_train_step``: the
+    kernels' formulas, the flops of every other operation; no memory
+    tracked): {"flops", "n_params"}."""
+    import dataclasses
+    from repro_torch.fed import trainer as FT
+    from repro_torch.launch import dryrun as D
+    from repro_torch.tree import tree_leaves
+    name, _, cfg, pattern, n = task
+    _, shape, _, _ = _phase_of(name)
+    params = D.meta_params(cfg, pattern)
+    if n:
+        fcfg = FT.FedLMConfig(
+            n_clients=n, rho=TRAIN_RHO, p=1.0, alpha=0.1, quant_bits=BITS,
+            quant_block=BLOCK, quant_dither="hash", client_mode="logical",
+            use_cv=TRAIN_RUNS[name][3])
+        counts, _ = D.count_train_step(
+            cfg, fcfg, dataclasses.replace(shape, global_batch=n),
+            params=params, pattern=pattern, peak=False)
+    else:
+        counts, _ = D.count_serve(cfg, shape, params=params, pattern=pattern,
+                                  peak=False)
+    return {"flops": counts["flops"],
+            "n_params": sum(x.numel() for x in tree_leaves(params))}
+
+
+def roofline_child(names, wait) -> dict:
+    """``roofline_tasks`` of ``names`` counted: the cheapest prefill first
+    (it imports and warms what every count runs, and runs no backward:
+    autograd refuses to run in a process forked from one where it ran),
+    then ``wait()``, then the rest in ROOFLINE_WORKERS processes forked
+    from this one, the longest first: {name: {"flops", "n_params"}}, each
+    the weighted sum of its points'."""
+    import multiprocessing
+    import torch
+    torch.set_num_threads(1)
+    tasks = roofline_tasks(names)
+
+    def cost(task):
+        _, _, cfg, pattern, n = task
+        return (len(pattern) + cfg.n_encoder_layers) * max(n, 1) * (
+            2 if n else 1)
+
+    tasks.sort(key=cost, reverse=True)
+    first = min((t for t in tasks if not t[4]), key=cost)
+    rest = [t for t in tasks if t is not first]
+    counts = [roofline_count(first)]
+    wait()
+    with multiprocessing.get_context("fork").Pool(ROOFLINE_WORKERS) as pool:
+        counts += pool.map(roofline_count, rest, chunksize=1)
+    out = {name: {"flops": 0.0, "n_params": 0.0} for name in names}
+    for (name, w, *_), c in zip([first] + rest, counts):
+        for key in out[name]:
+            out[name][key] += w * c[key]
+    return {name: {"flops": c["flops"], "n_params": int(round(c["n_params"]))}
+            for name, c in out.items()}
+
+
+def start_roofline():
+    """``roofline_child`` of every timed phase in a child process of this
+    script (``ROOFLINE_CHILD``), its output written under ``build/``. It
+    imports and warms its counters, then waits for ``join_roofline`` to
+    write "go" to it: (child, output paths)."""
+    root = Path(__file__).resolve().parent
+    logs = (root / "build" / "roofline.out", root / "build" / "roofline.err")
+    logs[0].parent.mkdir(exist_ok=True)
+    names = ",".join(list(SERVE_RUNS) + list(TRAIN_RUNS))
+    with open(logs[0], "w") as so, open(logs[1], "w") as se:
+        child = subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                                  ROOFLINE_CHILD, names], stdin=subprocess.PIPE,
+                                 stdout=so, stderr=se, text=True)
+    atexit.register(lambda: child.poll() is None and child.kill())
+    return child, logs
+
+
+def join_roofline(started, serve_seconds: dict,
+                  train_seconds: dict) -> dict:
+    """The child's counts beside the seconds each phase measured: the
+    model flops' share of the bf16 peak (``mfu``) and the larger term's
+    share of the time (``roofline_share``). A share above
+    ROOFLINE_SHARE_MAX fails the run."""
+    from repro_torch.launch.roofline import PEAK_FLOPS_BF16
+    child, logs = started
+    t0 = time.perf_counter()
+    try:
+        child.stdin.write("go\n")
+        child.stdin.close()
+    except BrokenPipeError:
+        pass                      # it has ended: its exit code says how
+    try:
+        child.wait(timeout=CHILD_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        child.kill()
+        child.wait()
+        raise AssertionError(f"the roofline counts took over "
+                             f"{CHILD_TIMEOUT_S} s")
+    stdout, stderr = (p.read_text() for p in logs)
+    require(child.returncode == 0, f"the roofline child failed (exit "
+            f"{child.returncode}): {stderr[-2000:]}")
+    for p in logs:
+        p.unlink()
+    counts = json.loads(stdout.strip().splitlines()[-1])
+    out = {"phase": "roofline", "prefill": {}, "train": {}}
+    for part, seconds in (("prefill", serve_seconds),
+                          ("train", train_seconds)):
+        for name, t in seconds.items():
+            cfg, shape, kw, _ = _phase_of(name)
+            row = _counted_row(cfg, shape, counts[name]["n_params"],
+                               counts[name]["flops"], **kw)
+            row["seconds"] = t
+            row["mfu"] = row["model_flops"] / t / PEAK_FLOPS_BF16
+            row["roofline_share"] = max(row["compute_s"],
+                                        row["memory_s"]) / t
+            out[part][name] = row
+    over = {k: r["roofline_share"] for part in ("prefill", "train")
+            for k, r in out[part].items()
+            if not r["roofline_share"] <= ROOFLINE_SHARE_MAX}
+    require(not over, f"a roofline share over {ROOFLINE_SHARE_MAX}: {over}")
+    out["seconds"] = time.perf_counter() - t0
+    return out
 
 
 def profiled(fn, top: int = 12, watch: str = ""):
@@ -3576,6 +3837,17 @@ def main() -> int:
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     if FIGURES_CHILD in sys.argv[1:]:
         return figures_child("--profile" in sys.argv[1:])
+    if ROOFLINE_CHILD in sys.argv[1:]:
+        names = sys.argv[sys.argv.index(ROOFLINE_CHILD) + 1].split(",")
+
+        def wait():
+            # the parent's "go" once its timed phases are over; end
+            # without counting if it went away
+            if sys.stdin.readline() != "go\n":
+                sys.exit(1)
+
+        print(json.dumps(roofline_child(names, wait)), flush=True)
+        return 0
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import quantize_block as qb
@@ -3589,6 +3861,9 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
     device_kind = torch.cuda.get_device_name(0)
+    # the host's children need no card: beside the build, the dry run runs
+    # and the roofline's counter starts, then waits for the timed phases
+    dryrun, counting = start_dryrun(), start_roofline()
     t0 = time.perf_counter()
     # one nvcc per source, started together
     sources = [qb.SOURCE, fa.SOURCE, rs.SOURCE, fa.SOURCE_BWD, rs.SOURCE_BWD]
@@ -3735,9 +4010,11 @@ def main() -> int:
     emit(dict(lm_phase, card=card))
     _free()
     emit(dict(serve_smoke_presets(), card=card))
+    serve_seconds = {}
     for name, run in SERVE_RUNS.items():
         served = serve_model(name, profile, **run)
         emit(dict(served, card=card))
+        serve_seconds[name] = served["bf16_kv"]["prefill_seconds"]
         # the serve path's launches: the sum over the archs of the row's
         # kernel, each counted from 0 over its own measured requests
         n = served["launches"]
@@ -3747,7 +4024,19 @@ def main() -> int:
         total = sum(by_arch.values())
         row.update(launches=total, launches_by_path={"serve": total})
     _free()
-    bwd_rows, train_launches, mesh_launches = train_phase(card, profile)
+    bwd_rows, train_launches, mesh_launches, train_seconds = train_phase(
+        card, profile)
+    # nothing runs on the card from here: the counts on meta tensors, side
+    # by side on the host
+    try:
+        emit(dict(join_roofline(counting, serve_seconds, train_seconds),
+                  card=card))
+        emit(dict(join_dryrun(dryrun), card=card))
+    finally:
+        for child in (dryrun[0], counting[0]):
+            if child.poll() is None:
+                child.kill()
+                child.wait()
     # the train paths' launches: the full-width runs' timed rounds, and
     # train_mesh's mesh rounds (its decode + reduce at wq counted on the
     # decode_reduce_wq row)

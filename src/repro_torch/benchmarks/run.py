@@ -1,13 +1,19 @@
 """Benchmark entry point and the shared figure harness (the counterpart of
-the reference's ``benchmarks/run.py``; its kernel microbenchmarks and the
-roofline table are not ported yet).
+the reference's ``benchmarks/run.py``; its kernel microbenchmarks are not
+ported yet).
 
 ``harness`` is the one run loop the figure reproductions build on: it
 drives ``repro_torch.api.run``, times the trajectory (``api.run``'s history
 is read back to the host, so the time includes the device's work), and
 returns the history as a list of float dicts.
 
-    python -m repro_torch.benchmarks.run [--full] [--skip fig1,fig2,fig3] [--device cpu]
+    python -m repro_torch.benchmarks.run [--full] [--device cpu] \
+        [--skip fig1,fig2,fig3,roofline]
+    python -m repro_torch.benchmarks.run roofline [--markdown]
+
+``roofline`` renders the roofline table of the dry run's records
+(``roofline_table``) and nothing else; the figure run ends with it when
+records exist.
 
 Reduced sizes by default (Fig. 1 and Fig. 2 80 rounds; Fig. 3 dims 4, 8,
 16 and 40 rounds); ``--full`` is the paper's scale (300 rounds; Fig. 3
@@ -40,11 +46,17 @@ def figure_args(doc: str, argv=None, skip: bool = False):
     ap.add_argument("--device", default=None,
                     help="torch device (default: the GPU)")
     if skip:
-        ap.add_argument("--skip", default="", help="comma list: fig1,fig2,fig3")
+        ap.add_argument("--skip", default="", help="comma list: fig1,fig2,fig3,roofline")
     return ap.parse_args(argv)
 
 
 def main(argv=None) -> None:
+    import sys
+    argv = sys.argv[1:] if argv is None else list(argv)
+    if argv[:1] == ["roofline"]:
+        from . import roofline_table
+        roofline_table.main(argv[1:])
+        return
     args = figure_args(__doc__, argv, skip=True)
     skip = set(args.skip.split(","))
     reduced = not args.full
@@ -64,6 +76,12 @@ def main(argv=None) -> None:
         from . import fig3_ot
         fig3_ot.main(dims=(4, 8, 16) if reduced else (16, 32, 64),
                      rounds=40 if reduced else 100, device=args.device)
+    if "roofline" not in skip:
+        from . import roofline_table
+        rows = roofline_table.load()
+        if rows:
+            print("\n=== Roofline table (the dry run's records) ===")
+            roofline_table.render(rows)
 
 
 if __name__ == "__main__":

@@ -1,6 +1,5 @@
-"""Architecture configuration schema (the port's copy of
-``repro/configs/base.py``; the input-shape registry of the dry-run is not
-needed here).
+"""Architecture configuration schema and the dry run's input shapes (the
+port's copy of ``repro/configs/base.py``).
 
 Every architecture has one module in ``repro_torch.configs`` exporting
 ``CONFIG``; ``repro_torch.configs.get(name)`` resolves them. ``reduced()``
@@ -58,6 +57,12 @@ class ArchConfig:
     def padded_vocab(self) -> int:
         return ((self.vocab + 127) // 128) * 128
 
+    @property
+    def is_subquadratic(self) -> bool:
+        """Eligible for long_500k: SSM, hybrid, or sliding-window dense."""
+        return self.family in ("ssm", "hybrid") or (
+            self.window > 0 and self.global_every > 0)
+
     def reduced(self) -> "ArchConfig":
         """2-layer, d_model<=512, <=4-expert CPU smoke variant (same family)."""
         d = min(self.d_model, 128)
@@ -82,3 +87,19 @@ class ArchConfig:
             d_state=8,
             dtype="float32",
         )
+
+
+@dataclasses.dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                      # "train" | "prefill" | "decode"
+
+
+INPUT_SHAPES = {
+    "train_4k":    InputShape("train_4k",    4_096,   256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768,  32,  "prefill"),
+    "decode_32k":  InputShape("decode_32k",  32_768,  128, "decode"),
+    "long_500k":   InputShape("long_500k",   524_288, 1,   "decode"),
+}

@@ -60,6 +60,7 @@ import torch.nn.functional as F
 from ..kernels import ops as kernel_ops
 from ..kernels import ref as kernel_ref
 from ..kernels.quantize_block import kernel_group_ok, reduce_group_ok
+from ..models.sharding import is_dtensor
 from ..tree import tree_flatten, tree_leaves, tree_map, tree_unflatten
 
 Pytree = object
@@ -236,7 +237,7 @@ def leaf_checksum(codes, scales, n_batch: int = 0) -> torch.Tensor:
     the codes stream plus the (domain-separated) scales stream. ``n_batch``
     leading axes are batch dims (one digest per batch row). Placed
     (``DTensor``) buffers are digested whole."""
-    if _is_dtensor(codes):
+    if is_dtensor(codes):
         codes, scales = codes.full_tensor(), scales.full_tensor()
     total = (_digest(codes, n_batch, 0)
              + _digest(scales, n_batch, _CKSUM_SCALE_SALT)) & _M32
@@ -421,10 +422,6 @@ def _stream_dither(dither: str) -> str:
     return "hash" if dither == "kernel" else dither
 
 
-def _is_dtensor(x) -> bool:
-    return getattr(x, "placements", None) is not None
-
-
 def _whole_on_rank(x) -> bool:
     """A ``DTensor`` whose local tensor is the whole leaf: fully
     replicated, or on a one-rank mesh."""
@@ -448,7 +445,7 @@ def _kernel_route(x: torch.Tensor, g: int, kernel_threshold: int) -> str:
     below 128 (``kernel_group_ok``)."""
     if x.numel() < kernel_threshold or not kernel_group_ok(g):
         return "plain"
-    if not _is_dtensor(x) or _whole_on_rank(x):
+    if not is_dtensor(x) or _whole_on_rank(x):
         return "kernel"
     box = kernel_ops.shard_box(tuple(x.shape), x.device_mesh, x.placements)
     if box is not None and (box[-1].stop - box[-1].start) % g == 0:
@@ -564,7 +561,7 @@ def quantize_leaf(seed, x, bits: int = 8, block: int = 256,
     _check_modes(compute, dither)
     if bits == 0 or x.ndim == 0 or x.numel() == 0:
         return x
-    if _is_dtensor(x):
+    if is_dtensor(x):
         return _dtensor_leaf(quantize_leaf, seed, x, dict(
             bits=bits, block=block, dither=dither, shard_safe=shard_safe,
             kernel_threshold=kernel_threshold, compute=compute))
@@ -643,7 +640,7 @@ def encode_leaf(seed, x, bits: int = 8, block: int = 256,
         raise ValueError(f"wire format carries <= 8-bit codes, got {bits}")
     if bits == 0 or x.ndim == 0 or x.numel() == 0:
         return x
-    if _is_dtensor(x):
+    if is_dtensor(x):
         return _dtensor_leaf(encode_leaf, seed, x, dict(
             bits=bits, block=block, dither=dither, shard_safe=shard_safe,
             kernel_threshold=kernel_threshold, compute=compute,
@@ -725,7 +722,7 @@ def decode_leaf(p):
     axes beyond the recorded layout are batch dims."""
     if not isinstance(p, PackedLeaf):
         return p
-    if _is_dtensor(p.codes):
+    if is_dtensor(p.codes):
         # a shard-safe payload placed like its leaf: each rank decodes its
         # own block (its groups are whole)
         codes, scales = p.codes.to_local(), p.scales.to_local()

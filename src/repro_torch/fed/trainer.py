@@ -181,6 +181,8 @@ def make_problem(model, cfg: FedLMConfig) -> api.MMProblem:
         del live
         # S_i = theta - rho * g, written over each gradient (autograd's
         # fresh buffer, in the parameter dtype): no second tree
+        # (on DTensors, each gradient reduced to its leaf's layout first)
+        grads = [shd.placed_like(g, th) for th, g in zip(leaves, grads)]
         s_i = [torch.sub(th, g.mul_(cfg.rho), out=g)
                for th, g in zip(leaves, grads)]
         return tree_unflatten(treedef, s_i), {"loss": loss.detach()}

@@ -45,12 +45,23 @@ ties forward and backward together as a ``torch.autograd.Function``,
 which ``kernels/ops.py`` applies to CUDA tensors.
 
 ``flash_attention`` and ``flash_attention_backward`` take the plain
-versions for CPU (and shape-only ``meta``) tensors, launch their kernels
-for CUDA tensors, and raise for anything else; a CUDA tensor never falls
-back (an hd outside ``HEAD_DIMS`` raises). ``LAUNCHES`` counts the
-kernels' launches (``flash_attention``; ``flash_attention_bwd``, once per
-backward, for its two kernels); only a launch adds to it.
-``blocks_per_sm`` reports a forward launch's occupancy.
+versions for CPU tensors, launch their kernels for CUDA tensors, and
+raise for anything else; a CUDA tensor never falls back (an hd outside
+``HEAD_DIMS`` raises). ``LAUNCHES`` counts the kernels' launches
+(``flash_attention``; ``flash_attention_bwd``, once per backward, for its
+two kernels); only a launch adds to it. ``blocks_per_sm`` reports a
+forward launch's occupancy.
+
+Shape-only (``meta``) tensors take neither: the wrappers check the
+shapes and dtypes as for a launch and return empty outputs of the
+kernels' shapes through two operators of their own
+(``repro_torch::flash_attention_fwd`` and ``_bwd``), whose FLOP formulas
+(``forward_flops``: 4 hd flop per kept (query, key) pair and query head;
+``backward_flops``: 10 hd, the five products) are registered with
+``torch.utils.flop_counter``. So a dry run on ``meta`` counts the
+kernel's work and memory, not the plain version's (S x S scores, both
+halves of a causal product). The same formulas give ``chip_smoke.py``'s
+bounds.
 """
 from __future__ import annotations
 
@@ -163,6 +174,87 @@ def _check_rc(rc: int, what: str) -> None:
     B.check(rc, what)
 
 
+# ---------------------------------------------------------------------------
+# the kernels' work, and their shape-only route
+# ---------------------------------------------------------------------------
+
+def kept_pairs(Sq: int, Sk: int, causal: bool = True, window: int = 0) -> int:
+    """The (query, key) pairs the masks keep, query i and key j at
+    positions i and j (``ref.attention_keep``'s count, without the
+    (Sq, Sk) mask)."""
+    i = torch.arange(Sq, dtype=torch.int64)
+    hi = torch.clamp(i + 1, max=Sk) if causal else torch.full_like(i, Sk)
+    lo = (torch.clamp(i - window + 1, min=0) if window
+          else torch.zeros_like(i))
+    return int(torch.clamp(hi - lo, min=0).sum())
+
+
+def forward_flops(B: int, Sq: int, Sk: int, H: int, hd: int,
+                  causal: bool = True, window: int = 0) -> int:
+    """The forward's work: Q K^T and P V, 4 hd flop per kept pair and
+    query head."""
+    return 4 * hd * kept_pairs(Sq, Sk, causal, window) * B * H
+
+
+def backward_flops(B: int, Sq: int, Sk: int, H: int, hd: int,
+                   causal: bool = True, window: int = 0) -> int:
+    """The backward's work: its five products (S, dP, dV, dQ, dK), 10 hd
+    flop per kept pair and query head."""
+    return 10 * hd * kept_pairs(Sq, Sk, causal, window) * B * H
+
+
+_OPS = torch.library.Library("repro_torch", "FRAGMENT")
+_OPS.define("flash_attention_fwd(Tensor q, Tensor k, Tensor v, bool causal, "
+            "int window) -> (Tensor, Tensor)")
+_OPS.define("flash_attention_bwd(Tensor q, Tensor k, Tensor v, Tensor o, "
+            "Tensor lse, Tensor do, bool causal, int window) "
+            "-> (Tensor, Tensor, Tensor)")
+
+
+def _fwd_shapes(q, k, v, causal, window):
+    return (torch.empty(q.shape, dtype=q.dtype, device=q.device),
+            torch.empty((q.shape[0], q.shape[2], q.shape[1]),
+                        dtype=torch.float32, device=q.device))
+
+
+def _bwd_shapes(q, k, v, o, lse, do, causal, window):
+    return tuple(torch.empty(t.shape, dtype=t.dtype, device=t.device)
+                 for t in (q, k, v))
+
+
+_OPS.impl("flash_attention_fwd", _fwd_shapes, "Meta")
+_OPS.impl("flash_attention_bwd", _bwd_shapes, "Meta")
+
+
+def _flops_of(fn):
+    def formula(q_shape, k_shape, *args, out_shape=None, **kwargs):
+        causal, window = args[-2:]
+        B, Sq, H, hd = q_shape
+        return fn(B, Sq, k_shape[1], H, hd, causal, window)
+    return formula
+
+
+def _register_flops() -> None:
+    from torch.utils.flop_counter import register_flop_formula
+    register_flop_formula(torch.ops.repro_torch.flash_attention_fwd)(
+        _flops_of(forward_flops))
+    register_flop_formula(torch.ops.repro_torch.flash_attention_bwd)(
+        _flops_of(backward_flops))
+
+
+_register_flops()
+
+
+def _check_meta_args(*ts) -> None:
+    """The kernels' dtype checks, on a shape-only call."""
+    if ts[0].dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"the CUDA kernel takes float32 or bfloat16, got "
+                        f"{ts[0].dtype}")
+    for t in ts[1:]:
+        if t.dtype != ts[0].dtype:
+            raise TypeError(f"{t.dtype} beside q's {ts[0].dtype}")
+
+
 def flash_attention(q, k, v, causal: bool = True, window: int = 0,
                     return_lse: bool = False):
     """q: (B, Sq, H, hd); k, v: (B, Sk, KV, hd) -> (B, Sq, H, hd) in q's
@@ -174,6 +266,11 @@ def flash_attention(q, k, v, causal: bool = True, window: int = 0,
     _check_shapes(q, k, v)
     if window < 0:
         raise ValueError(f"window={window}")
+    if q.device.type == "meta":
+        _check_meta_args(q, k, v)
+        out, lse = torch.ops.repro_torch.flash_attention_fwd(
+            q, k, v, causal, int(window))
+        return (out, lse) if return_lse else out
     if B.route(q, "flash attention") == "plain":
         out = flash_attention_plain(q, k, v, causal=causal, window=window)
         if not return_lse:
@@ -226,6 +323,10 @@ def flash_attention_backward(q, k, v, o, lse, do, causal: bool = True,
         if t.shape != q.shape:
             raise ValueError(f"{name} {tuple(t.shape)} != q {tuple(q.shape)}")
     _check_lse(lse, q)
+    if q.device.type == "meta":
+        _check_meta_args(q, k, v)
+        return torch.ops.repro_torch.flash_attention_bwd(
+            q, k, v, o, lse, do, causal, int(window))
     if B.route(q, "flash attention backward") == "plain":
         return ref.flash_attention_backward_plain(q, k, v, o, do,
                                                   causal=causal,
@@ -257,9 +358,9 @@ class FlashAttentionFn(torch.autograd.Function):
     """``flash_attention`` with its backward kernels: the forward returns
     (out, lse) and saves q, k, v, out and its rows' log-sum-exp (lse is
     not differentiable); the backward launches
-    ``flash_attention_backward``'s kernels. For CUDA tensors
-    (``kernels/ops.py``, which hands on ``out`` alone); on CPU tensors
-    both run their plain versions."""
+    ``flash_attention_backward``'s kernels. For CUDA and shape-only
+    ``meta`` tensors (``kernels/ops.py``, which hands on ``out`` alone); on
+    CPU tensors both run their plain versions."""
 
     @staticmethod
     def forward(q, k, v, causal, window):

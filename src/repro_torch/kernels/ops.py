@@ -7,6 +7,13 @@ the gradient) and call the plain versions on CPU tensors, which autograd
 differentiates as any PyTorch code. Each kernel module launches its CUDA
 kernel for CUDA tensors and takes its plain version on the CPU.
 
+Shape-only ``meta`` tensors take the ``autograd.Function``s too, whose
+kernels then return empty outputs of their shapes (the kernel modules'
+docstrings). ``DTensor`` inputs of ``flash_attention`` and ``rwkv_wkv``
+run the kernel on each rank's block (``local_map``): the batch dim
+stays sharded where it is, the head dim where each head count divides
+the mesh dims that shard it, every other dim is gathered first.
+
 ``quantize_dequantize_sharded`` and ``quantize_encode_sharded`` are the
 counterparts of the reference's shard_map wrappers: one kernel launch on
 each rank's own block of a partitioned ``DTensor`` leaf, no gather.
@@ -16,6 +23,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..models.sharding import is_dtensor
 from . import build as B
 from . import flash_attention as fa
 from . import quantize_block as qb
@@ -85,13 +93,56 @@ def _tpu_tiles_at_default(**given) -> None:
                 f"{defaults[name]}")
 
 
+def on_blocks(fn, args, lead, keep: dict, in_dims, out_dims):
+    """``fn(*args)`` on each rank's block of the ``DTensor``s ``args``
+    (``local_map``, inputs redistributed first). ``lead`` sets the layout:
+    a mesh dim that shards a dim ``d`` of ``lead`` in ``keep`` still shards
+    it when every count in ``keep[d]`` (the sizes that split along it)
+    divides the mesh dims sharding it so far; every other mesh dim is
+    gathered. ``in_dims``/``out_dims``: for each input and output, a map
+    from ``lead``'s kept dims to that tensor's own (a dim left out is
+    replicated). The gradient of an input replicated over a mesh dim that
+    splits the work is each rank's part of a sum (``Partial``)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    layout, split = [], dict.fromkeys(keep, 1)
+    for i, pl in enumerate(lead.placements):
+        m = lead.device_mesh.size(i)
+        d = next((d for d in keep if pl.is_shard(d) and all(
+            c % (split[d] * m) == 0 for c in keep[d])), None)
+        if d is not None:
+            split[d] *= m
+        layout.append(d)
+
+    def placed(dims, summed=Replicate()):
+        return [Replicate() if d is None else summed if dims.get(d) is None
+                else Shard(dims[d]) for d in layout]
+
+    outs = tuple(placed(dims) for dims in out_dims)
+    return local_map(fn, out_placements=outs if len(outs) > 1 else outs[0],
+                     in_placements=tuple(placed(dims) for dims in in_dims),
+                     in_grad_placements=tuple(placed(dims, Partial())
+                                              for dims in in_dims),
+                     device_mesh=lead.device_mesh,
+                     redistribute_inputs=True)(*args)
+
+
+# a sequence kernel's (B, S, H, hd) tensors keep their batch and head dims
+SEQ_DIMS = {0: 0, 2: 2}
+
+
 def flash_attention(q, k, v, causal: bool = True, window: int = 0,
                     q_block: int = 128, kv_block: int = 128):
     """GQA attention: q (B, Sq, H, hd), k, v (B, Sk, KV, hd) -> (B, Sq, H,
     hd). ``q_block``/``kv_block`` keep the reference's signature and must
     stay at their defaults."""
     _tpu_tiles_at_default(q_block=q_block, kv_block=kv_block)
-    if q.device.type == "cuda":
+    if is_dtensor(q):
+        return on_blocks(
+            lambda a, b, c: flash_attention(a, b, c, causal, window),
+            (q, k, v), q, {0: (q.shape[0],), 2: (q.shape[2], k.shape[2])},
+            (SEQ_DIMS,) * 3, (SEQ_DIMS,))
+    if q.device.type in ("cuda", "meta"):
         return fa.FlashAttentionFn.apply(q, k, v, causal, window)[0]
     return fa.flash_attention(q, k, v, causal=causal, window=window)
 
@@ -101,7 +152,13 @@ def rwkv_wkv(r, k, v, w, u, chunk: int = 64):
     reference's signature and must stay at its default: the Hopper kernel
     walks time in one pass."""
     _tpu_tiles_at_default(chunk=chunk)
-    if r.device.type == "cuda":
+    if is_dtensor(r):
+        # u (H, hd) splits along the heads; the state (B, H, hd, hd)
+        return on_blocks(rwkv_wkv, (r, k, v, w, u), r,
+                         {0: (r.shape[0],), 2: (r.shape[2],)},
+                         (SEQ_DIMS,) * 4 + ({2: 0},),
+                         (SEQ_DIMS, {0: 0, 2: 1}))
+    if r.device.type in ("cuda", "meta"):
         return rs.WKV6Fn.apply(r, k, v, w, rs.as_u32(u, r))
     return rs.rwkv_scan(r, k, v, w, u)
 

@@ -41,10 +41,16 @@ comes back as partials per (batch, head, chunk), which the wrapper sums.
 outside it, so autograd carries du back to u's dtype).
 
 ``rwkv_scan`` and ``rwkv_scan_backward`` take the plain versions for CPU
-(and shape-only ``meta``) tensors, launch their kernels for CUDA
-tensors, and raise for anything else; a CUDA tensor never falls back.
-``LAUNCHES`` counts the kernels' launches (``rwkv_scan``,
-``rwkv_scan_bwd``); only a launch adds to it.
+tensors, launch their kernels for CUDA tensors, and raise for anything
+else; a CUDA tensor never falls back. ``LAUNCHES`` counts the kernels'
+launches (``rwkv_scan``, ``rwkv_scan_bwd``); only a launch adds to it.
+
+Shape-only (``meta``) tensors return empty outputs of the kernels' shapes
+through two operators of their own (``repro_torch::wkv6_fwd`` and
+``_bwd``), whose FLOP formulas (``forward_flops``, ``backward_flops``:
+the operation counts of ``chip_smoke.py``'s bounds) are registered with
+``torch.utils.flop_counter``: a dry run counts the kernel's work, not the
+plain loop's.
 """
 from __future__ import annotations
 
@@ -129,10 +135,77 @@ def _check_kernel_args(r, k, v, w) -> None:
             raise ValueError(f"{name} must start on a 16-byte boundary")
 
 
+def forward_flops(B: int, S: int, H: int, hd: int) -> int:
+    """The forward's float32 work: per state element and step, S <- w S +
+    k v (a multiply and an FMA) and r . S (an FMA), 5 flop; the u bonus is
+    rank one, (sum_k r_k u_k k_k) v, 5 flop per (step, head, channel)."""
+    n = B * S * H * hd
+    return 5 * n * hd + 5 * n
+
+
+def backward_flops(B: int, S: int, H: int, hd: int) -> int:
+    """The backward's float32 work: per state element and step, the state
+    rebuilt (2 flop), dk, dv, dw, dr (2 each) and G (2): 12 flop."""
+    return 12 * B * S * H * hd * hd
+
+
+_OPS = torch.library.Library("repro_torch", "FRAGMENT")
+_OPS.define("wkv6_fwd(Tensor r, Tensor k, Tensor v, Tensor w, Tensor u) "
+            "-> (Tensor, Tensor)")
+_OPS.define("wkv6_bwd(Tensor r, Tensor k, Tensor v, Tensor w, Tensor u, "
+            "Tensor dy) -> (Tensor, Tensor, Tensor, Tensor, Tensor)")
+
+
+def _fwd_shapes(r, k, v, w, u):
+    Bn, _, H, hd = r.shape
+    return (torch.empty(r.shape, dtype=r.dtype, device=r.device),
+            torch.empty((Bn, H, hd, hd), dtype=torch.float32,
+                        device=r.device))
+
+
+def _bwd_shapes(r, k, v, w, u, dy):
+    return tuple(torch.empty(t.shape, dtype=t.dtype, device=t.device)
+                 for t in (r, k, v, w, u))
+
+
+_OPS.impl("wkv6_fwd", _fwd_shapes, "Meta")
+_OPS.impl("wkv6_bwd", _bwd_shapes, "Meta")
+
+
+def _flops_of(fn):
+    def formula(r_shape, *args, out_shape=None, **kwargs):
+        return fn(*r_shape)
+    return formula
+
+
+def _register_flops() -> None:
+    from torch.utils.flop_counter import register_flop_formula
+    register_flop_formula(torch.ops.repro_torch.wkv6_fwd)(
+        _flops_of(forward_flops))
+    register_flop_formula(torch.ops.repro_torch.wkv6_bwd)(
+        _flops_of(backward_flops))
+
+
+_register_flops()
+
+
+def _check_meta_dtypes(r, k, v, w) -> None:
+    """The kernel's dtype checks, on a shape-only call."""
+    if r.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"the CUDA kernel takes float32 or bfloat16, got "
+                        f"{r.dtype}")
+    for name, t in (("k", k), ("v", v), ("w", w)):
+        if t.dtype != r.dtype:
+            raise TypeError(f"{name} is {t.dtype}, r is {r.dtype}")
+
+
 def rwkv_scan(r, k, v, w, u):
     """r, k, v, w: (B, S, H, hd); u: (H, hd). Returns (y (B, S, H, hd) in
     r's dtype, final state (B, H, hd, hd) float32)."""
     _check_shapes(r, k, v, w, u)
+    if r.device.type == "meta":
+        _check_meta_dtypes(r, k, v, w)
+        return torch.ops.repro_torch.wkv6_fwd(r, k, v, w, u)
     if B.route(r, "RWKV scan") == "plain":
         return rwkv_scan_plain(r, k, v, w, u)
     _check_kernel_args(r, k, v, w)
@@ -165,6 +238,9 @@ def rwkv_scan_backward(r, k, v, w, u, dy, dstate=None, *, lib=None):
     _check_shapes(r, k, v, w, u)
     if dy.shape != r.shape:
         raise ValueError(f"dy {tuple(dy.shape)} != r {tuple(r.shape)}")
+    if r.device.type == "meta":
+        _check_meta_dtypes(r, k, v, w)
+        return torch.ops.repro_torch.wkv6_bwd(r, k, v, w, u, dy)
     if B.route(r, "RWKV scan backward") == "plain":
         return ref.rwkv_scan_backward_plain(r, k, v, w, u, dy, dstate)
     _check_kernel_args(r, k, v, w)
@@ -203,8 +279,8 @@ class WKV6Fn(torch.autograd.Function):
     """``rwkv_scan`` with its backward kernel, over the float32 ``u32``
     (``as_u32``): returns (y, final state); the backward launches
     ``rwkv_scan_backward``'s kernel, with the state's gradient when the
-    caller used the state and zero otherwise. For CUDA tensors
-    (``kernels/ops.py``)."""
+    caller used the state and zero otherwise. For CUDA and shape-only
+    ``meta`` tensors (``kernels/ops.py``)."""
 
     @staticmethod
     def forward(r, k, v, w, u32):

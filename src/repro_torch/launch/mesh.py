@@ -7,8 +7,9 @@ The production mesh is the reference's shape and names: 256 ranks as
 "model")`` (pods are the federated silos). ``client_axes`` names the
 client (batch, silo) dims and ``axis_rules`` the logical-axis rules that
 ``models.sharding.install_rules`` takes. The reference's TPU v5e
-constants for its roofline are not ported: the H100's roofline belongs
-to ``launch/roofline.py`` (ROADMAP Queue A item 12).
+constants for its roofline are not ported: the H100's are in
+``launch/roofline.py``, which the dry run (``launch/dryrun.py``) reads
+beside this mesh.
 
 A mesh here is a ``torch.distributed.device_mesh.DeviceMesh`` over the
 ranks of the default process group, which the caller starts

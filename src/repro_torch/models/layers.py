@@ -21,6 +21,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..kernels import ops
+from .sharding import (is_dtensor, like, merge_heads, reduced, replicated,
+                       shard, splittable, write_slot)
 
 NEG_INF = -1e9  # safe for bf16/f32 masking
 
@@ -110,7 +112,8 @@ def rope(x, positions, theta=1e4):
     exps = torch.arange(0, hd, 2, dtype=torch.float32, device=x.device) / hd
     freqs = 1.0 / (theta ** exps)
     ang = positions[..., None].to(torch.float32) * freqs    # (..., S, hd/2)
-    cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+    cos = like(torch.cos(ang)[..., None, :], x)
+    sin = like(torch.sin(ang)[..., None, :], x)
     x1, x2 = x[..., 0::2], x[..., 1::2]
     xr1 = x1 * cos - x2 * sin
     xr2 = x1 * sin + x2 * cos
@@ -132,7 +135,7 @@ def attention_init(gen, cfg, dtype):
 
 
 def _split_heads(x, n_heads, hd):
-    return x.reshape(x.shape[:-1] + (n_heads, hd))
+    return splittable(x, n_heads).reshape(x.shape[:-1] + (n_heads, hd))
 
 
 def _positions(n: int, device):
@@ -167,7 +170,7 @@ def gqa_attention(params, cfg, x, kv_x=None, mask=None, positions=None,
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, kv_positions, cfg.rope_theta)
     out = gqa_core(q, k, v, mask)
-    out = out.reshape(out.shape[:2] + (H * hd,))
+    out = merge_heads(out)
     return out @ params["wo"]
 
 
@@ -183,10 +186,11 @@ def gqa_core(q, k, v, mask=None, kv_valid=None):
     logits = torch.einsum("bqkgh,bskh->bkgqs", q, k).to(torch.float32)
     logits = logits / math.sqrt(hd)
     if mask is not None:
-        logits = logits.masked_fill(~mask[None, None, None], NEG_INF)
-    if kv_valid is not None:
-        logits = logits.masked_fill(~kv_valid[None, None, None, None],
+        logits = logits.masked_fill(like(~mask[None, None, None], logits),
                                     NEG_INF)
+    if kv_valid is not None:
+        logits = logits.masked_fill(
+            like(~kv_valid[None, None, None, None], logits), NEG_INF)
     w = torch.softmax(logits, dim=-1)
     out = torch.einsum("bkgqs,bskh->bqkgh", w.to(v.dtype), v)
     return out.reshape(B, Sq, H, hd)
@@ -231,7 +235,8 @@ def decode_attention(params, cfg, x, cache, pos: int, use_rope=True):
     slot = pos % S
 
     def write(name, val):
-        cache[name][:, slot:slot + 1] = val.to(cache[name].dtype)
+        t = write_slot(cache[name], slot, val.to(cache[name].dtype))
+        cache[name] = shard(t, "batch", "cache_seq", None, None)
 
     if int8:
         kq, ks = kv_quantize(k_new)
@@ -250,7 +255,7 @@ def decode_attention(params, cfg, x, cache, pos: int, use_rope=True):
     # filled -- once the ring wraps (pos >= S) everything is valid.
     kv_valid = torch.arange(S, device=x.device) <= pos
     out = gqa_core(q, k_att, v_att, mask=None, kv_valid=kv_valid)
-    out = out.reshape(out.shape[:2] + (H * hd,))
+    out = merge_heads(out)
     return out @ params["wo"], cache
 
 
@@ -273,7 +278,7 @@ def full_seq_attention(params, cfg, x, *, causal=True, window=0, kv_x=None,
         else:
             k = rope(k, _positions(kv_in.shape[1], x.device), cfg.rope_theta)
     out = ops.flash_attention(q, k, v, causal=causal, window=window)
-    out = out.reshape(out.shape[:2] + (H * hd,))
+    out = merge_heads(out)
     return out @ params["wo"], k, v
 
 
@@ -291,6 +296,7 @@ def mlp_init(gen, d, ff, dtype):
 
 def mlp(params, x):
     h = F.silu(x @ params["w_gate"]) * (x @ params["w_in"])
+    h = shard(h, "batch", None, "ff")
     return h @ params["w_out"]
 
 
@@ -309,7 +315,10 @@ def embedding_init(gen, cfg, dtype):
 
 
 def embed(params, tokens):
-    return F.embedding(tokens, params["embed"])
+    # a DTensor's ids replicated first: the vocab-sharded lookup masks the
+    # ids outside this rank's rows, and where DTensor gathers batch-sharded
+    # ids itself it makes that mask from this rank's block of them only
+    return F.embedding(replicated(tokens), params["embed"])
 
 
 def logits_fn(params, x, cfg):
@@ -318,7 +327,7 @@ def logits_fn(params, x, cfg):
     pad = cfg.padded_vocab - cfg.vocab
     if pad:
         mask = torch.arange(cfg.padded_vocab, device=x.device) < cfg.vocab
-        logits = logits.masked_fill(~mask, NEG_INF)
+        logits = logits.masked_fill(like(~mask, logits), NEG_INF)
     return logits
 
 
@@ -328,10 +337,22 @@ def _chunk_xent(head, xc, yc, vocab: int):
     lg = (xc @ head.T).to(torch.float32)
     if vocab < lg.shape[-1]:
         live = torch.arange(lg.shape[-1], device=lg.device) < vocab
-        lg = lg.masked_fill(~live, NEG_INF)
-    lse = torch.logsumexp(lg, dim=-1)
-    tgt = torch.gather(lg, -1, yc[..., None])[..., 0]
-    return torch.sum(lse - tgt)
+        lg = lg.masked_fill(like(~live, lg), NEG_INF)
+    if not is_dtensor(lg):
+        lse = torch.logsumexp(lg, dim=-1)
+    else:
+        # a vocab-sharded DTensor: the max and the sum reduce over the
+        # shards (two small all-reduces), where logsumexp would gather
+        # the chunk's logits
+        m = torch.amax(lg, dim=-1, keepdim=True).detach()
+        lse = (torch.log(torch.sum(torch.exp(lg - m), dim=-1))
+               + m[..., 0])
+    # the target's logit, gathered from the (rows, vocab) view: the same
+    # values, and a form a vocab-sharded DTensor can gather (its masked
+    # partial summed before the reshape)
+    tgt = reduced(torch.gather(lg.reshape(-1, lg.shape[-1]), 1,
+                               yc.reshape(-1, 1)))
+    return torch.sum(lse - tgt.reshape(lse.shape))
 
 
 def chunked_softmax_xent(params, x, labels, cfg, chunk: int = 128):
@@ -344,7 +365,10 @@ def chunked_softmax_xent(params, x, labels, cfg, chunk: int = 128):
     (B, S, d); labels: (B, S) int64."""
     B, S, _ = x.shape
     chunk = min(chunk, S)
-    head = params["lm_head"]
+    # on the production mesh the head is gathered over the client axes
+    # once, not once a chunk (FSDP's gather at use; the identity without
+    # rules)
+    head = shard(params["lm_head"], "vocab", None)
     total = torch.zeros((), dtype=torch.float32, device=x.device)
     for s0 in range(0, S, chunk):
         xc, yc = x[:, s0:s0 + chunk], labels[:, s0:s0 + chunk]

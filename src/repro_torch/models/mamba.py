@@ -42,7 +42,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..kernels import ops
 from .layers import dense_init
+from .sharding import is_dtensor, like
 
 # the scan's chunk: how many steps' transition tensors exist at a time
 CHUNK = 64
@@ -92,7 +94,7 @@ def _conv_causal(u, w, b, conv_state=None):
     so that a cache does not hold the whole padded sequence)."""
     K, S = w.shape[0], u.shape[1]
     if conv_state is None:
-        conv_state = u.new_zeros((u.shape[0], K - 1, u.shape[2]))
+        conv_state = like(u.new_zeros((u.shape[0], K - 1, u.shape[2])), u)
     xpad = torch.cat([conv_state, u], dim=1)                 # (B, S+K-1, di)
     out = xpad[:, 0:S] * w[0]
     for i in range(1, K):
@@ -104,10 +106,21 @@ def _ssm_scan(u, dt, B, C, A, D, chunk: int = CHUNK):
     """u: (B, S, di) model dtype; dt: (B, S, di) float32; B, C: (B, S, n);
     A: (di, n) float32. Returns (y (B, S, di) in u's dtype, final h
     (B, di, n) float32)."""
+    if is_dtensor(u):
+        # DTensors: each rank's block of batch rows and channels (the
+        # recurrence is per (row, channel), so the blocks need nothing
+        # from each other, and a chunk costs a few local calls where a
+        # DTensor call costs milliseconds); B, C (B, S, n) split by row,
+        # A (di, n) and D (di,) by channel, h (B, di, n) by both
+        return ops.on_blocks(
+            lambda *a: _ssm_scan(*a, chunk=chunk), (u, dt, B, C, A, D), u,
+            {0: (u.shape[0],), 2: (u.shape[2],)},
+            (ops.SEQ_DIMS,) * 2 + ({0: 0},) * 2 + ({2: 0},) * 2,
+            (ops.SEQ_DIMS, {0: 0, 2: 1}))
     Bb, S, di = u.shape
     n = A.shape[1]
     u32, B32, C32 = u.float(), B.float(), C.float()
-    h = u32.new_zeros((Bb, di, n))
+    h = like(u32.new_zeros((Bb, di, n)), u32)
     ys = []
     for s in range(0, S, chunk):
         e = min(s + chunk, S)
@@ -117,12 +130,18 @@ def _ssm_scan(u, dt, B, C, A, D, chunk: int = CHUNK):
         # unbind, not an index a step: autograd then stacks the steps'
         # gradients once a chunk, where an index's backward would write
         # each step's into a zero tensor of the whole chunk
-        states = []
-        for dA_t, dBu_t in zip(dA.unbind(1), dBu.unbind(1)):
-            h = torch.addcmul(dBu_t, dA_t, h)                 # dA h + dBu
-            states.append(h)
-        ys.append(torch.einsum("bldn,bln->bld", torch.stack(states, 1),
-                               C32[:, s:e]))
+        if u.device.type == "meta":
+            # shape-only: the chunk's states in one call (their shapes and
+            # bytes, without a call a step; the steps count no flops)
+            chunk_states = torch.addcmul(dBu, dA, h[:, None])
+            h = chunk_states[:, -1]
+        else:
+            states = []
+            for dA_t, dBu_t in zip(dA.unbind(1), dBu.unbind(1)):
+                h = torch.addcmul(dBu_t, dA_t, h)             # dA h + dBu
+                states.append(h)
+            chunk_states = torch.stack(states, 1)
+        ys.append(torch.einsum("bldn,bln->bld", chunk_states, C32[:, s:e]))
         LAUNCHES["ssm_scan"] += CALLS_PER_CHUNK + (e - s)
     y = torch.cat(ys, dim=1).to(u.dtype) + u * D
     return y, h

@@ -76,6 +76,7 @@ from ..api.driver import resolve_device
 from ..configs.base import ArchConfig
 from . import layers as L
 from . import transformer as T
+from .sharding import like, shard
 
 SERVED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "audio", "vlm")
 # the batch key of each family's frontend embeddings
@@ -112,18 +113,22 @@ def _ring(cache: dict, S: int, R: int) -> dict:
     (in order along dim 1) as a ring of R slots: position p at slot
     p % R, the other slots zero."""
     n = cache["k"].shape[1]
-    slots = torch.arange(S - n, S, device=cache["k"].device) % R
+    slots = like(torch.arange(S - n, S, device=cache["k"].device) % R,
+                 cache["k"])
     out = {}
     for key, t in cache.items():
-        ring = t.new_zeros((t.shape[0], R) + tuple(t.shape[2:]))
-        ring[:, slots] = t
-        out[key] = ring
+        # out of place: a DTensor takes no in-place write that changes
+        # its layout
+        out[key] = t.new_zeros((t.shape[0], R) + tuple(t.shape[2:])) \
+            .index_copy(1, slots, t)
     return out
 
 
-def build_model(cfg: ArchConfig, device=None) -> Model:
+def build_model(cfg: ArchConfig, device=None, pattern=None) -> Model:
     """The model on ``device``: the GPU unless the caller asks for another
-    (raises without one)."""
+    (raises without one). ``pattern``: its layer kinds in place of
+    ``layer_pattern(cfg)`` (a shallow model of chosen kinds, which the
+    dry run's ``depth_line`` counts)."""
     if cfg.family not in SERVED_FAMILIES:
         raise ValueError(f"family {cfg.family!r}: the port serves "
                          f"{SERVED_FAMILIES}")
@@ -134,7 +139,7 @@ def build_model(cfg: ArchConfig, device=None) -> Model:
             "C item 7)")
     dev = resolve_device(device)
     dtype = _dtype(cfg)
-    pattern = T.layer_pattern(cfg)
+    pattern = T.layer_pattern(cfg) if pattern is None else list(pattern)
     enc_pattern = ["enc_mlp"] * cfg.n_encoder_layers
     audio, vlm = cfg.family == "audio", cfg.family == "vlm"
 
@@ -158,6 +163,7 @@ def build_model(cfg: ArchConfig, device=None) -> Model:
         """Token embeddings and the frontend: (x, enc_out, the positions
         of x before the tokens)."""
         x = L.embed(params["embedding"], batch["tokens"]).to(dtype)
+        x = shard(x, "batch", None, None)
         if vlm:
             patches = batch["patches"].to(dtype)
             return torch.cat([patches, x], dim=1), None, patches.shape[1]
@@ -210,6 +216,7 @@ def build_model(cfg: ArchConfig, device=None) -> Model:
     def decode(params, caches, token, pos: int):
         """token: (B, 1) int64; pos: the next position index."""
         x = L.embed(params["embedding"], token).to(dtype)
+        x = shard(x, "batch", None, None)
         x, caches = T.stack_decode(pattern, params["layers"], cfg, x, caches,
                                    int(pos))
         x = L.rmsnorm(params["final_norm"], x)

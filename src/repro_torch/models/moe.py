@@ -32,6 +32,12 @@ capacity C = g * k, that would be k * E times the pairs):
 The router's product is full float32 on every device: TF32 would move
 a logit by more than the gap between two experts' probabilities, and the
 top-k selection turns that into another expert.
+
+On shape-only ``meta`` tensors no count can be read: the buffer then has
+the capacity's rows, M = G * C (every expert full in every group, the
+size of the reference's one-hot buffer), and ``DISPATCH`` is not
+updated. The buffer's expert dim is laid out over 'experts' (``shard``,
+the reference's constraint; the identity without rules).
 """
 from __future__ import annotations
 
@@ -39,6 +45,8 @@ import math
 
 import torch
 import torch.nn.functional as F
+
+from .sharding import like, shard, whole
 
 # (token, choice) pairs routed and kept, summed over every moe_block call
 # since the last reset_dispatch(): the share that capacity dropped
@@ -93,6 +101,14 @@ def _router_logits(xg, router):
     return x32 @ router
 
 
+def _one_hot(idx, E: int):
+    """``F.one_hot(idx, E)``'s int64 values by comparison, a form that a
+    ``DTensor`` (no strategy for one_hot's range check) and a ``meta``
+    tensor take too."""
+    experts = like(torch.arange(E, device=idx.device), idx)
+    return (idx[..., None] == experts).to(torch.int64)
+
+
 def route(params, cfg, x, group: int = 0):
     """The router's decisions for x (B, S, d): ``(g, probs (G, g, E) f32,
     gate (G, g, k) f32 renormalised, eid (G, g, k), pos (G, g, k) the
@@ -106,7 +122,7 @@ def route(params, cfg, x, group: int = 0):
     gate, eid = torch.topk(probs, k, dim=-1)
     gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
     # an exclusive count over the group's pairs in (token, choice) order
-    onehot = F.one_hot(eid.reshape(G, g * k), E)
+    onehot = _one_hot(eid.reshape(G, g * k), E)
     before = onehot.cumsum(1) - onehot
     pos = before.gather(2, eid.reshape(G, g * k, 1)).reshape(G, g, k)
     C = max(1, int(g * k / E * cfg.capacity_factor))
@@ -118,8 +134,10 @@ def balance_loss(probs, eid, E: int):
     ce the mean over tokens of its count among the token's k choices."""
     me = probs.mean(dim=(0, 1))
     n_tokens = probs.shape[0] * probs.shape[1]
-    ce = torch.bincount(eid.reshape(-1), minlength=E).to(torch.float32) \
-        / n_tokens
+    # bincount's counts (a DTensor has no strategy for bincount, meta no
+    # kernel)
+    counts = _one_hot(eid.reshape(-1), E).sum(0)
+    ce = counts.to(torch.float32) / n_tokens
     return E * torch.sum(me * ce)
 
 
@@ -135,15 +153,19 @@ def moe_block(params, cfg, x, group: int = 0):
     keep = pos < C                                       # (G, g, k)
     # a kept pair's row within its expert: the pairs its expert keeps in
     # earlier groups, then its position in its own group
-    kept = torch.zeros((G, E), dtype=torch.int64, device=x.device)
-    kept.scatter_add_(1, eid.reshape(G, g * k),
-                      keep.reshape(G, g * k).to(torch.int64))
+    # (counted out of place: a DTensor's in-place scatter into a tensor of
+    # another layout has no strategy)
+    kept = (_one_hot(eid.reshape(G, g * k), E)
+            * keep.reshape(G, g * k, 1)).sum(1)
     earlier = kept.cumsum(0) - kept
-    totals = kept.sum(0)
-    M, n_kept = (int(v) for v in torch.stack([totals.max(),
-                                              totals.sum()]).tolist())
-    DISPATCH["pairs"] += N * k
-    DISPATCH["kept"] += n_kept
+    if x.device.type == "meta":
+        M = G * C
+    else:
+        totals = kept.sum(0)
+        M, n_kept = (int(v) for v in whole(torch.stack(
+            [totals.max(), totals.sum()])).tolist())
+        DISPATCH["pairs"] += N * k
+        DISPATCH["kept"] += n_kept
     row = eid * M + earlier.gather(1, eid.reshape(G, g * k)) \
         .reshape(G, g, k) + pos
     row = row.reshape(N, k)
@@ -154,7 +176,7 @@ def moe_block(params, cfg, x, group: int = 0):
     xe = x.reshape(N, 1, d).expand(N, k, d)
     buf = x.new_zeros((E * M + 1, d)).index_put(
         (torch.where(keep, row, E * M),), xe)
-    buf = buf[:E * M].view(E, M, d)
+    buf = shard(buf[:E * M].view(E, M, d), "experts", None, None)
 
     w = params["experts"]
     h = F.silu(torch.bmm(buf, w["w_gate"])) * torch.bmm(buf, w["w_in"])

@@ -20,6 +20,7 @@ import torch.nn.functional as F
 
 from ..kernels import ops
 from .layers import dense_init, rmsnorm, rmsnorm_init
+from .sharding import like, merge_heads, splittable
 
 
 def rwkv_block_init(gen, cfg, dtype):
@@ -73,13 +74,16 @@ def time_mix(params, cfg, x, shift_state, wkv_state=None, single_step=False):
     def mixed(mix):
         return x * mix + xs * (1.0 - mix)
 
-    r = (mixed(params["mix_r"]) @ params["wr"]).reshape(B, S, H, hd)
-    k = (mixed(params["mix_k"]) @ params["wk"]).reshape(B, S, H, hd)
-    v = (mixed(params["mix_v"]) @ params["wv"]).reshape(B, S, H, hd)
+    def heads(t):
+        return splittable(t, H).reshape(B, S, H, hd)
+
+    r = heads(mixed(params["mix_r"]) @ params["wr"])
+    k = heads(mixed(params["mix_k"]) @ params["wk"])
+    v = heads(mixed(params["mix_v"]) @ params["wv"])
     # the gate mixes with mix_v (there is no mix_g), as in the reference
     g = F.silu(mixed(params["mix_v"]) @ params["wg"])
     w_raw = mixed(params["mix_w"]) @ params["ww"] + params["w_bias"]
-    w = torch.exp(-torch.exp(w_raw.to(torch.float32))).reshape(B, S, H, hd)
+    w = heads(torch.exp(-torch.exp(w_raw.to(torch.float32))))
 
     if single_step:
         if wkv_state is None:
@@ -93,7 +97,7 @@ def time_mix(params, cfg, x, shift_state, wkv_state=None, single_step=False):
         # the decay is cast to r's dtype before the scan, as the reference
         # casts it: the state follows the reference's rounding
         y, new_state = ops.rwkv_wkv(r, k, v, w.to(r.dtype), params["u"])
-    y = (y.reshape(B, S, d) * g) @ params["wo"]
+    y = (merge_heads(y) * g) @ params["wo"]
     # a copy of the last row: a view would keep all of x alive in the cache
     return y, x[:, -1].clone(), new_state
 
@@ -119,6 +123,7 @@ def rwkv_block(params, cfg, x, state=None, single_step=False):
             "wkv": torch.zeros((B, H, hd, hd), dtype=torch.float32,
                                device=x.device),
         }
+        state = {key: like(t, x) for key, t in state.items()}
     y, new_tm, new_wkv = time_mix(params, cfg, rmsnorm(params["tm_norm"], x),
                                   state["shift_tm"], state["wkv"], single_step)
     x = x + y

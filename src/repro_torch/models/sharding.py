@@ -36,17 +36,36 @@ cache has no block axis either: the cache rule reads batch at dim 1 of
 the stacked rank, so it too sees ``(1,) + shape``.
 
 ``shard(x, *axes)`` redistributes a ``DTensor`` to the installed rules'
-spec; without rules, or for a plain tensor (eager PyTorch has no
-constraint on a local tensor), it returns ``x``. The models call no
-``shard`` yet: its first consumer is the dry run (ROADMAP Queue A item
-12).
+spec (a mesh dim that does not divide its tensor dim is left out, as the
+weight rules leave it); without rules, or for a plain tensor (eager
+PyTorch has no constraint on a local tensor), it returns ``x``. The models
+call it where the reference constrains an activation: the embedding's
+output, the MLP's hidden, the KV cache and the MoE's dispatch buffer.
+The dry run (``launch/dryrun.py``) installs the rules and runs the models
+on ``DTensor``s, which more helpers make possible; each is the
+identity on plain tensors:
+
+* ``like(t, ref)``: a constant a layer builds (RoPE's angles, a mask, a
+  zero state) replicated on ``ref``'s mesh, so no operation mixes a
+  plain tensor with a ``DTensor``;
+* ``splittable(x, n)`` and ``merge_heads(x)``: the head split of a last
+  dim sharded over mesh dims that do not divide the head count (phi3's 40
+  heads over 16) gathers it first, forward and, for the merge, backward;
+* ``placed_like(g, ref)``: a gradient reduced to its parameter's layout;
+* ``write_slot(t, slot, val)``: decode's in-place write of a cache slot;
+* ``whole(x)``: a value the host reads (the MoE's counts);
+* ``replicated(x)``: token ids gathered before a vocab-sharded lookup,
+  and ``reduced(x)``: a vocab-sharded gather's result summed before it
+  is reshaped.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
+import torch
+
 from ..tree import tree_flatten, tree_unflatten
-from .layers import params_tree
 
 # installed by the launcher: logical axis name -> mesh dim (or tuple)
 _RULES: Optional[dict] = None
@@ -123,16 +142,143 @@ def placements(spec, mesh) -> list:
     return out
 
 
+def _names(e) -> tuple:
+    return () if e is None else (e,) if isinstance(e, str) else tuple(e)
+
+
+def is_dtensor(x) -> bool:
+    """Whether ``x`` is a ``DTensor`` (it has placements), without
+    importing ``torch.distributed.tensor``."""
+    return getattr(x, "placements", None) is not None
+
+
 def shard(x, *logical_axes):
     """``x`` laid out by logical axis names: a ``DTensor`` redistributed
-    to the installed rules' spec on its own mesh; ``x`` itself without
-    rules or for a plain tensor."""
-    if _RULES is None:
+    to the installed rules' spec on its own mesh (an entry whose mesh dims
+    do not divide the tensor dim replicated); ``x`` itself without rules
+    or for a plain tensor."""
+    if _RULES is None or not is_dtensor(x):
         return x
-    spec = logical_to_spec(*logical_axes)
-    if getattr(x, "placements", None) is None:
+    mesh = x.device_mesh
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+    spec = []
+    for size, e in zip(x.shape, logical_to_spec(*logical_axes)):
+        n = math.prod(int(sizes[a]) for a in _names(e))
+        spec.append(e if e is None or size % n == 0 else None)
+    return x.redistribute(mesh, placements(spec, mesh))
+
+
+def splittable(x, n: int):
+    """``x`` ready to have its last dim split into ``n`` blocks (heads): a
+    ``DTensor`` whose last dim is sharded over mesh dims whose product does
+    not divide ``n`` is gathered along it first; ``x`` itself otherwise."""
+    if not is_dtensor(x):
         return x
-    return x.redistribute(x.device_mesh, placements(spec, x.device_mesh))
+    last, split = x.ndim - 1, 1
+    for i, pl in enumerate(x.placements):
+        if pl.is_shard(last) or pl.is_shard(-1):
+            split *= x.device_mesh.size(i)
+    if n % split == 0:
+        return x
+    from torch.distributed.tensor import Replicate
+    return x.redistribute(x.device_mesh, [
+        Replicate() if pl.is_shard(last) or pl.is_shard(-1) else pl
+        for pl in x.placements])
+
+
+def merge_heads(x):
+    """``x`` (..., n, hd) as (..., n * hd). On a ``DTensor`` the gradient
+    is made ``splittable`` before the backward splits it again (DTensor's
+    view cannot split an unevenly sharded dim)."""
+    if not is_dtensor(x):
+        return x.reshape(x.shape[:-2] + (-1,))
+    return _MergeHeads.apply(x)
+
+
+class _MergeHeads(torch.autograd.Function):
+    @staticmethod
+    def forward(x):
+        return x.reshape(x.shape[:-2] + (-1,))
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.shape = inputs[0].shape
+
+    @staticmethod
+    def backward(ctx, g):
+        return splittable(g, ctx.shape[-2]).reshape(ctx.shape)
+
+
+def replicated(x):
+    """A ``DTensor`` replicated over its whole mesh; ``x`` itself for a
+    plain tensor."""
+    if not is_dtensor(x) or all(pl.is_replicate() for pl in x.placements):
+        return x
+    from torch.distributed.tensor import Replicate
+    return x.redistribute(x.device_mesh, [Replicate()] * x.device_mesh.ndim)
+
+
+def write_slot(t, slot: int, val):
+    """``t[:, slot] = val[:, 0]`` in place; returns ``t``. On a ``DTensor``
+    the write goes into the local block of the rank whose block along dim
+    1 holds ``slot``, ``val`` laid out as ``t`` on every other dim first
+    (a slice write into a ``DTensor`` sharded along dim 1 would go into a
+    gathered copy and be lost)."""
+    if not is_dtensor(t):
+        t[:, slot:slot + 1] = val
+        return t
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    mesh = t.device_mesh
+    val = val.redistribute(mesh, [Replicate() if pl.is_shard(1) else pl
+                                  for pl in t.placements])
+    shape, offset = compute_local_shape_and_global_offset(
+        t.shape, mesh, t.placements)
+    i = slot - offset[1]
+    if 0 <= i < shape[1]:
+        t.to_local()[:, i:i + 1] = val.to_local()
+    return t
+
+
+def whole(x):
+    """``x``'s global value on this rank: a ``DTensor`` replicated, then its
+    local tensor; ``x`` itself otherwise."""
+    return replicated(x).to_local() if is_dtensor(x) else x
+
+
+def reduced(x):
+    """A ``DTensor`` whose pending reductions (a partial sum, a
+    vocab-sharded lookup's masked rows) are done, those mesh dims
+    replicated; ``x`` itself otherwise. A masked lookup's partial cannot
+    outlive a reshape of its result."""
+    if not is_dtensor(x) or not any(pl.is_partial() for pl in x.placements):
+        return x
+    from torch.distributed.tensor import Replicate
+    return x.redistribute(x.device_mesh, [
+        Replicate() if pl.is_partial() else pl for pl in x.placements])
+
+
+def placed_like(t, ref):
+    """``t`` redistributed to ``ref``'s placements when both are
+    ``DTensor``s that differ (a gradient reduced to its parameter's
+    layout); ``t`` itself otherwise."""
+    if (not is_dtensor(t) or not is_dtensor(ref)
+            or tuple(t.placements) == tuple(ref.placements)):
+        return t
+    return t.redistribute(ref.device_mesh, ref.placements)
+
+
+def like(t, ref):
+    """``t``, a constant a layer builds beside ``ref``, as a ``DTensor``
+    replicated on ``ref``'s mesh when ``ref`` is a ``DTensor`` and ``t``
+    is not; ``t`` itself otherwise (always, for plain tensors)."""
+    if not is_dtensor(ref) or is_dtensor(t):
+        return t
+    from torch.distributed.tensor import DTensor, Replicate
+    mesh = ref.device_mesh
+    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
 
 
 # ---------------------------------------------------------------------------
@@ -240,6 +386,7 @@ def _spec_tree(tree, rule, per_layer) -> object:
     """``rule(path, shape)`` over the leaves of ``tree``; a leaf for which
     ``per_layer(path)`` holds takes the rule on ``(1,) + shape`` with the
     leading entry dropped."""
+    from .layers import params_tree
     tree = params_tree(tree)
     leaves, treedef = tree_flatten(tree)
     specs = []

@@ -47,6 +47,7 @@ from . import layers as L
 from . import mamba as M
 from . import moe as MOE
 from . import rwkv as R
+from .sharding import merge_heads, shard
 
 ATTENTION_KINDS = ("attn_mlp", "swa_mlp", "attn_moe")
 MAMBA_KINDS = ("mamba_mlp", "mamba_moe")
@@ -94,6 +95,12 @@ def _use_rope(cfg) -> bool:
     return cfg.family != "hybrid"
 
 
+def _cache_layout(t):
+    """A KV cache (B, S, KV, hd): batch over the client axes, sequence over
+    'model' (the reference's constraint; the identity without rules)."""
+    return shard(t, "batch", "cache_seq", None, None)
+
+
 def layer_forward(kind, params, cfg, x, enc_out=None, want_cache=False):
     """Full-sequence forward; ``enc_out`` the encoder's output (B, F, d),
     which only ``cross_mlp`` reads. Returns (x, cache_or_None, aux): a
@@ -113,9 +120,10 @@ def layer_forward(kind, params, cfg, x, enc_out=None, want_cache=False):
             if getattr(cfg, "kv_dtype", "") == "int8":
                 kq, ks = L.kv_quantize(k)
                 vq, vs = L.kv_quantize(v)
-                cache = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
+                cache = {"k": _cache_layout(kq), "v": _cache_layout(vq),
+                         "k_scale": ks, "v_scale": vs}
             else:
-                cache = {"k": k, "v": v}
+                cache = {"k": _cache_layout(k), "v": _cache_layout(v)}
         h, aux = _ffn(kind, params, cfg, x)
         return x + h, cache, aux
     if kind == "rwkv":
@@ -135,7 +143,8 @@ def layer_forward(kind, params, cfg, x, enc_out=None, want_cache=False):
             params["xattn"], cfg, L.rmsnorm(params["norm_x"], x),
             kv_x=enc_out, causal=False, use_rope=False)
         x = x + h
-        cache = {"k": k, "v": v, "ek": ek, "ev": ev} if want_cache else None
+        cache = ({"k": _cache_layout(k), "v": _cache_layout(v), "ek": ek,
+                  "ev": ev} if want_cache else None)
         h, aux = _ffn(kind, params, cfg, x)
         return x + h, cache, aux
     raise ValueError(kind)
@@ -168,7 +177,7 @@ def layer_decode(kind, params, cfg, x, cache, pos):
         q = L._split_heads(L.rmsnorm(params["norm_x"], x)
                            @ params["xattn"]["wq"], cfg.n_heads, cfg.hd)
         out = L.gqa_core(q, cache["ek"], cache["ev"])
-        x = x + out.reshape(out.shape[:2] + (-1,)) @ params["xattn"]["wo"]
+        x = x + merge_heads(out) @ params["xattn"]["wo"]
         h, _ = _ffn(kind, params, cfg, x)
         return x + h, cache
     raise ValueError(kind)
