@@ -24,7 +24,16 @@ points at full width and checks what comes out:
    sizes 16 and 4, a population of 256 clients, the fault axis, a kill
    and ``resume()``, the reduce uplink on the mesh and the two-tier
    topology), which runs the encode kernel in every cohort and the fused
-   decode + reduce in every cohort of a reduce uplink;
+   decode + reduce in every cohort of a reduce uplink; and, right after
+   the first rounds, the runtime checks (the ``sanitize`` phase): two
+   rounds with ``sanitize=True, audit_keys=True`` bit for bit the first
+   two of the plain run (the comm-bytes audit on the kernel-encoded
+   buffers), a NaN planted in one client's oracle output flagged at the
+   ``oracle`` stage (and laundered, finite, without the flag), one
+   audited and sanitized scheduler round bit for bit the plain one, and
+   ``check_compressor`` of the in-kernel-dither quantizer over
+   gemma3-12b's full-width parameter tree on ``meta`` tensors (a child
+   process run beside the build);
 2. serving (``repro_torch.launch.serve.serve``: prefill, then greedy
    decode with the ring-buffer KV cache) of phi3-medium-14b (40 layers,
    bf16, the flash-attention kernel in every prefill layer; then the
@@ -636,13 +645,15 @@ def loss_fn(batch, theta):
     return 0.5 * torch.mean(torch.sum(r * r, dim=-1))
 
 
-def drive_slice():
+def drive_slice(keep: dict):
     """The main path: ROUNDS vmap rounds with the hash dither (made in the
     kernel on the card), the same rounds with the in-kernel dither, with
     the hash streamed through the plain route (the bits before the kernel
     route made the hash itself) and with the uniform dither (streamed into
     the kernels), one round's drift and payload through the Compressor's
-    entry points, and one scan round. Returns the phase's JSON record."""
+    entry points, and one scan round. Returns the phase's JSON record;
+    fills ``keep`` with the workload, the problem, the hash-dither spec
+    and that run's metrics (``sanitize_phase``'s reference)."""
     import torch
     from repro_torch import api
     from repro_torch.core import compression as C
@@ -698,6 +709,8 @@ def drive_slice():
 
     # -- the hash-dither rounds ------------------------------------------
     state_h, hist_h, secs_h, peak_h = run("hash")
+    keep.update(problem=problem, x0=x0, xs=xs, ys=ys, eval_batch=eval_batch,
+                spec=spec_for("hash"), hist=hist_h)
     loss = hist_h["loss"].tolist()
     require(all(map(lambda v: v == v and abs(v) < float("inf"), loss)),
             "loss not finite")
@@ -854,6 +867,206 @@ def drive_slice():
         # groups below 128 are the train path's (the slice's are 256)
         require(count > 0 or name.endswith("_small"), f"kernel {name} was "
                 f"not launched on the main path")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the sanitize phase: the runtime checks on the slice's workload
+# ---------------------------------------------------------------------------
+
+SANITIZE_ROUNDS = 2
+# the planted NaN's client, and the scheduler round's cohort size (two
+# cohorts: the later one's data drawn again from the wave's state)
+NAN_CLIENT, SANITIZE_COHORT = 3, N_CLIENTS // 2
+# the argument that makes this script the child of start_contracts, and
+# the config whose full-width parameter tree it checks
+CONTRACTS_CHILD, CONTRACTS_ARCH = "--contracts-child", "gemma3-12b"
+
+
+def contracts_child() -> dict:
+    """``check_compressor`` of the slice's quantizer with the dither made
+    in the kernel over CONTRACTS_ARCH's full-width, full-depth parameter
+    tree on ``meta`` tensors (no card; nothing allocated, no launch)."""
+    from repro_torch import configs
+    from repro_torch.analysis import check_compressor
+    from repro_torch.core import compression as C
+    from repro_torch.kernels import quantize_block as qb
+    from repro_torch.launch.dryrun import meta_params
+    from repro_torch.tree import tree_leaves
+    t0 = time.perf_counter()
+    tree = meta_params(configs.get(CONTRACTS_ARCH))
+    report = check_compressor(C.block_quant(BITS, BLOCK, dither="kernel"),
+                              tree)
+    return {"arch": CONTRACTS_ARCH, "report": report.to_json(),
+            "leaves": len(tree_leaves(tree)),
+            "parameters": sum(x.numel() for x in tree_leaves(tree)),
+            "launches": sum(qb.LAUNCHES.values()),
+            "seconds": time.perf_counter() - t0}
+
+
+def start_contracts():
+    """``contracts_child`` in a child process of this script started
+    beside the kernels' build, its output written under ``build/``:
+    (child, output paths)."""
+    root = Path(__file__).resolve().parent
+    logs = (root / "build" / "contracts.out", root / "build" / "contracts.err")
+    logs[0].parent.mkdir(exist_ok=True)
+    with open(logs[0], "w") as so, open(logs[1], "w") as se:
+        child = subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                                  CONTRACTS_CHILD], stdout=so, stderr=se)
+    atexit.register(lambda: child.poll() is None and child.kill())
+    return child, logs
+
+
+def join_contracts(started) -> dict:
+    """The child of ``start_contracts``: its record, whose report must be
+    ``ok`` with every contract of a wire-format compressor checked and no
+    kernel launched; and how long the join waited."""
+    child, logs = started
+    t0 = time.perf_counter()
+    try:
+        child.wait(timeout=CHILD_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        child.kill()
+        child.wait()
+        raise AssertionError(f"the contracts check took over "
+                             f"{CHILD_TIMEOUT_S} s")
+    stdout, stderr = (p.read_text() for p in logs)
+    require(child.returncode == 0, f"the contracts child failed (exit "
+            f"{child.returncode}): {stderr[-2000:]}")
+    for p in logs:
+        p.unlink()
+    record = json.loads(stdout.strip().splitlines()[-1])
+    report = record["report"]
+    require(report["ok"] and set(report["checked"]) >= {
+        "apply-roundtrip", "encode-decode-roundtrip", "packed-layout",
+        "payload-bytes", "decode-reduce", "reencode"},
+        f"check_compressor over {CONTRACTS_ARCH}'s tree: {report}")
+    require(record["launches"] == 0, "check_compressor launched a kernel")
+    return dict(record, wait_seconds=time.perf_counter() - t0)
+
+
+def sanitize_phase(ctx: dict, contracts) -> dict:
+    """The runtime checks on the slice's workload (``ctx``, filled by
+    ``drive_slice``): SANITIZE_ROUNDS rounds plain and with ``sanitize=True,
+    audit_keys=True`` (timed; bit for bit each other and the first rounds
+    of the slice's hash-dither run from the same seed, the sanitized ones
+    encoding on the kernel route under the comm-bytes audit), a NaN
+    planted in client NAN_CLIENT's data (its oracle output NaN) that the
+    sanitizer flags at the ``oracle`` stage of round 0 and that the plain
+    round launders, finite; one CohortScheduler round of SANITIZE_COHORT
+    clients a cohort, plain and audited and sanitized, bit for bit; and
+    the contracts child's record. Returns the phase's JSON record."""
+    import torch
+    from repro_torch import api
+    from repro_torch.analysis import KeyAudit
+    from repro_torch.analysis.runtime import SanitizerError
+    from repro_torch.core import compression as C
+    from repro_torch.kernels import quantize_block as qb
+    from repro_torch.sched import CohortScheduler
+    from repro_torch.tree import tree_leaves
+
+    sync = torch.cuda.synchronize
+    problem, x0, xs, ys, spec = (ctx[k] for k in ("problem", "x0", "xs",
+                                                  "ys", "spec"))
+    out = {"phase": "sanitize", "rounds": SANITIZE_ROUNDS}
+    qb.reset_launches()
+
+    def same(a, b, what):
+        for x, y in zip(tree_leaves(a), tree_leaves(b)):
+            require(bits_equal(x, y), f"{what}: the states differ")
+
+    def rounds(**kw):
+        sync()
+        t0 = time.perf_counter()
+        state, hist = api.run(problem, x0, (xs, ys), GAMMA, spec=spec,
+                              key=SEED, n_rounds=SANITIZE_ROUNDS,
+                              eval_batch=ctx["eval_batch"], device="cuda",
+                              client_mode="vmap", **kw)
+        sync()
+        return state, hist, time.perf_counter() - t0
+
+    st_p, h_p, secs_p = rounds()
+    enc = qb.LAUNCHES["encode_seeded"]
+    audit = KeyAudit()
+    st_s, h_s, secs_s = rounds(sanitize=True, audit_keys=audit)
+    kernel_leaves = sum(1 for leaf in tree_leaves(x0)
+                        if leaf.numel() >= C.KERNEL_DISPATCH_MIN)
+    require(qb.LAUNCHES["encode_seeded"] - enc
+            == SANITIZE_ROUNDS * N_CLIENTS * kernel_leaves,
+            "the sanitized rounds did not encode on the kernel route")
+    require(len(audit.report) > 0 and not audit.reuse_events,
+            f"the key audit: {len(audit.report)} draws, reuse "
+            f"{audit.reuse_events}")
+    # each check alone, for where the checks' time goes
+    st_c, h_c, secs_c = rounds(sanitize=True)
+    st_a, h_a, secs_a = rounds(audit_keys=True)
+    for what, st, h in (("sanitize and audit_keys", st_s, h_s),
+                        ("sanitize", st_c, h_c), ("audit_keys", st_a, h_a)):
+        same(tuple(st_p)[:3], tuple(st)[:3], f"{what} on")
+        for k in ctx["hist"]:
+            require(torch.equal(h[k], h_p[k])
+                    and torch.equal(h[k], ctx["hist"][k][:SANITIZE_ROUNDS]),
+                    f"metric {k} differs with {what} on")
+    out.update(seconds_plain=secs_p, seconds_sanitized=secs_s,
+               seconds_sanitize_only=secs_c, seconds_audit_only=secs_a,
+               seconds_per_round_plain=secs_p / SANITIZE_ROUNDS,
+               seconds_per_round_sanitized=secs_s / SANITIZE_ROUNDS,
+               draws_audited=len(audit.report))
+    del st_p, st_s, st_c, st_a
+
+    # -- a NaN planted in one client's oracle output ---------------------
+    xs_bad = xs.clone()
+    xs_bad[NAN_CLIENT, 0, 0] = float("nan")
+    state0 = api.init(problem, x0, spec, device="cuda")
+    caught = None
+    sync()
+    t0 = time.perf_counter()
+    try:
+        api.step(problem, spec, state0, (xs_bad, ys), GAMMA,
+                 torch.Generator().manual_seed(SEED), device="cuda",
+                 sanitize=True)
+    except SanitizerError as e:
+        caught = str(e)
+    out["seconds_nan_round_sanitized"] = time.perf_counter() - t0
+    require(caught is not None and "round 0, stage 'oracle'" in caught,
+            f"the planted NaN was not flagged at the oracle: {caught}")
+    st_nan, _ = api.step(problem, spec, state0, (xs_bad, ys), GAMMA,
+                         torch.Generator().manual_seed(SEED), device="cuda")
+    require(all(bool(torch.isfinite(x).all()) for x in tree_leaves(st_nan.x)),
+            "the plain round did not launder the planted NaN")
+    out.update(nan_flagged=caught, nan_laundered_finite=True)
+    del xs_bad, state0, st_nan
+
+    # -- one scheduler round, audited and sanitized ----------------------
+    sched_spec = api.FederationSpec(
+        n_clients=N_CLIENTS, participation=PARTICIPATION, variates="off",
+        compressor=spec.compressor)
+
+    def data_fn(t, gen, ids):
+        idx = torch.as_tensor(ids, device=xs.device)
+        return xs[idx], ys[idx]
+
+    def sched_round(**kw):
+        sched = CohortScheduler(problem, sched_spec,
+                                cohort_size=SANITIZE_COHORT, device="cuda")
+        sync()
+        t0 = time.perf_counter()
+        state, _, hist = sched.run(x0, data_fn, GAMMA, key=SEED, n_rounds=1,
+                                   **kw)
+        sync()
+        return state, hist, time.perf_counter() - t0
+
+    sa, ha, secs_a = sched_round()
+    sb, hb_, secs_b = sched_round(sanitize=True, audit_keys=True)
+    same(sa.x, sb.x, "the scheduler round, audited and sanitized")
+    for k in ha:
+        require(torch.equal(ha[k], hb_[k]), f"scheduler metric {k} differs "
+                f"audited and sanitized")
+    out.update(seconds_sched_round_plain=secs_a,
+               seconds_sched_round_sanitized=secs_b,
+               launches={"sanitize": dict(qb.LAUNCHES)},
+               contracts=join_contracts(contracts))
     return out
 
 
@@ -3798,7 +4011,8 @@ def profile_serving(model, params, batch):
 
 def profile_rounds():
     """``--profile``: one warm round of each dither under torch.profiler;
-    the device time by kernel and the device's idle share of the round."""
+    the device time by kernel and the device's idle share of the round;
+    then the sanitize phase's rounds, plain and with the stage checks."""
     import torch
     from repro_torch import api
     from repro_torch.core import compression as C
@@ -3826,6 +4040,19 @@ def profile_rounds():
               "round_seconds": rec.pop("seconds"),
               "step_peak_bytes": torch.cuda.max_memory_allocated(), **rec})
         del state
+    # where the stage checks' time goes: the sanitize phase's rounds (hash
+    # dither, variates "zero"), plain and with sanitize=True, twice each
+    spec = api.FederationSpec(
+        n_clients=N_CLIENTS, participation=PARTICIPATION, alpha=ALPHA,
+        variates="zero", compressor=C.block_quant(BITS, BLOCK, dither="hash"))
+    eval_batch = (xs.reshape(-1, D_MODEL), ys.reshape(-1, D_FF))
+    for sanitize in (False, True, False, True):
+        rec = profiled(lambda: api.run(
+            problem, x0, (xs, ys), GAMMA, spec=spec, key=SEED,
+            n_rounds=SANITIZE_ROUNDS, eval_batch=eval_batch, device=device,
+            client_mode="vmap", sanitize=sanitize), top=20)
+        emit({"phase": "profile_sanitize", "sanitize": sanitize,
+              "rounds": SANITIZE_ROUNDS, **rec})
 
 
 def main() -> int:
@@ -3837,6 +4064,9 @@ def main() -> int:
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     if FIGURES_CHILD in sys.argv[1:]:
         return figures_child("--profile" in sys.argv[1:])
+    if CONTRACTS_CHILD in sys.argv[1:]:
+        print(json.dumps(contracts_child()), flush=True)
+        return 0
     if ROOFLINE_CHILD in sys.argv[1:]:
         names = sys.argv[sys.argv.index(ROOFLINE_CHILD) + 1].split(",")
 
@@ -3864,6 +4094,7 @@ def main() -> int:
     # the host's children need no card: beside the build, the dry run runs
     # and the roofline's counter starts, then waits for the timed phases
     dryrun, counting = start_dryrun(), start_roofline()
+    contracts = start_contracts()
     t0 = time.perf_counter()
     # one nvcc per source, started together
     sources = [qb.SOURCE, fa.SOURCE, rs.SOURCE, fa.SOURCE_BWD, rs.SOURCE_BWD]
@@ -3953,8 +4184,12 @@ def main() -> int:
                        for k, v in kernels.items()}})
     torch.cuda.empty_cache()
 
-    slice_out = drive_slice()
+    keep = {}
+    slice_out = drive_slice(keep)
     emit(dict(slice_out, card=card))
+    sanitize_out = sanitize_phase(keep, contracts)
+    emit(dict(sanitize_out, card=card))
+    del keep
 
     _free()
     # the figures and Fig. 3 run in a child process beside the mesh and
@@ -3971,11 +4206,13 @@ def main() -> int:
         stop_figures(started)
 
     # the quantizer rows count their launches on each FedMM path apart:
-    # the single-device rounds, the mesh runs, the two-tier runs off the
-    # mesh and the scheduler's runs; "launches" is their sum
+    # the single-device rounds, the runtime checks' rounds, the mesh runs,
+    # the two-tier runs off the mesh and the scheduler's runs; "launches"
+    # is their sum
     for k, entry in kernels.items():
         by_path = {"slice": slice_out["launches"].get(k, 0)}
-        for path, counts in {**mesh_out["launches"],
+        for path, counts in {**sanitize_out["launches"],
+                             **mesh_out["launches"],
                              **sched_out["launches"]}.items():
             by_path[path] = sum(counts.get(c, 0)
                                 for c in ROW_COUNTS.get(k, (k,)))

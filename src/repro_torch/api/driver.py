@@ -46,8 +46,18 @@ Faults (``spec.faults``, a ``repro_torch.faults.FaultSpec``): a round
 draws ``(drop, corrupt)`` from the fault lanes (or takes ``fault_draws=``),
 folds ``drop`` into the participation mask and damages the ``corrupt``
 clients' payloads before verification, which drops them from the round.
-``sanitize`` and ``audit_keys`` raise ``NotImplementedError`` (ROADMAP
-Queue A item 12).
+
+Runtime checks (``repro_torch.analysis``): ``sanitize=True`` checks every
+floating leaf for NaN and inf at the boundaries of the round's stages, the
+index tensors the round gathers with against their range, reads the
+flags once at the end of the round and raises ``SanitizerError`` naming
+the round, the stage and the leaf (``analysis/runtime.py``: why stage
+checks and not checkify's per operation); it also runs the comm-bytes
+audit. ``audit_keys=True`` (or a ``KeyAudit``) records every draw from a
+``torch.Generator`` and raises
+``KeyReuseError`` where two call sites draw from the same generator state
+(``analysis/keytrace.py``). Both only read: trajectories are bit for bit
+the same with them on.
 
 Randomness: ``key`` is a ``torch.Generator``. Each round draws the
 participation mask, then one 32-bit seed per client and leaf
@@ -62,7 +72,9 @@ passes ``device="cpu"``; with no GPU and no such request they raise.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
 import gc
 from typing import Any, NamedTuple, Optional
 
@@ -71,19 +83,35 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
+from ..analysis.keytrace import resolve_audit
+from ..analysis.runtime import (Sanitizer, assert_comm_audit,
+                                finite_flag, resolve_sanitizer)
 from ..core.compression import (PackedLeaf, _tensordot, _tree_bytes,
                                 leaf_seeds, stack_payloads, verify_payload,
                                 zero_invalid_rows)
 from ..faults.injector import corrupt_payload
 from ..core.surrogate import (tree_lerp, tree_scale, tree_sq_norm,
                               tree_sq_norm_ew, tree_sub)
-from ..tree import tree_leaves, tree_map
+from ..tree import tree_leaves, tree_leaves_with_path, tree_map
 from .problem import MMProblem, as_problem
 from .schedule import resolve_schedule, schedule_length
 from . import collective
 from .spec import FederationSpec, participation_draw
 
 Pytree = Any
+
+
+def _under_key_audit(fn):
+    """Run ``fn`` (``step``, ``run``) inside the key audit that its
+    ``audit_keys=`` asks for, and nothing around it when that is off."""
+    @functools.wraps(fn)
+    def audited(*args, **kw):
+        audit = resolve_audit(kw.get("audit_keys", False))
+        with (audit.activate() if audit is not None
+              else contextlib.nullcontext()):
+            return fn(*args, **kw)
+    return audited
+
 
 CLIENT_MODES = ("vmap", "scan")
 
@@ -311,11 +339,25 @@ def _map_buffers(fn, payload):
                                                                 PackedLeaf))
 
 
+def _finite_flags(tree) -> dict:
+    """``path ->`` True where every element of the floating leaf is
+    finite (under ``torch.func.vmap``, one flag a client)."""
+    return {p: finite_flag(x)
+            for p, x in tree_leaves_with_path(tree) if x.is_floating_point()}
+
+
+def _stack_flags(fls: list) -> dict:
+    """One client's ``{stage: {path: flag}}`` after another, stacked over
+    the clients as ``torch.func.vmap`` returns them."""
+    return {stage: {p: torch.stack([fl[stage][p] for fl in fls])
+                    for p in fls[0][stage]} for stage in fls[0]}
+
+
 def _client_stage(problem: MMProblem, spec: FederationSpec, view, x_ref,
                   client_batches, v_i, seeds, mask, mu, *, client_mode,
                   uplink="gather", mesh=None, client_axis="clients",
                   rows=None, edge_seeds=None, edge_ids=None, corrupt=None,
-                  tier_finalize=True, oracle_loop=False):
+                  tier_finalize=True, oracle_loop=False, san=None):
     """The client half of Algorithm 2. ``seeds``, ``mask`` and ``mu`` cover
     all n clients; ``client_batches`` and ``v_i`` the clients of ``rows``
     (``(lo, hi)``: the rank's block on a mesh, all n off it). Returns
@@ -335,7 +377,10 @@ def _client_stage(problem: MMProblem, spec: FederationSpec, view, x_ref,
     ``tier_finalize=False`` (the cohort path) returns the two-tier
     ``(n_edges,)`` float32 per-edge partial instead of crossing the
     boundary. ``oracle_loop``: the ``"vmap"`` stage with the oracles
-    called one client at a time."""
+    called one client at a time. ``san``: a ``Sanitizer`` that the stage's
+    checks are queued into (the oracle's output, ``T`` of it, the drift,
+    the updated variates: per client, gathered over a mesh; the edge
+    ids' range), or None."""
     p, alpha = spec.participation, spec.alpha
     param_space = spec.aggregation == "parameter"
     use_v = spec.use_variates
@@ -355,22 +400,47 @@ def _client_stage(problem: MMProblem, spec: FederationSpec, view, x_ref,
     if two_tier:
         edge_ids = torch.as_tensor(
             topo.edge_ids(n) if edge_ids is None else edge_ids,
-            dtype=torch.int64).to(mask.device)
+            dtype=torch.int64)
+        if san is not None:
+            san.check_index("aggregate", "edge_ids", edge_ids, topo.n_edges)
+        edge_ids = edge_ids.to(mask.device)
     collective_bytes = backbone_bytes = None
 
     def oracle(batch, v_c):
-        """One client's oracle (+ optional metrics) and drift."""
+        """One client's oracle (+ optional metrics) and drift, and under
+        ``san`` the stages' finite flags."""
+        flags = {}
         if problem.s_bar_metrics is not None:
             s_i, cm = problem.s_bar_metrics(batch, view)   # line 6
         else:
             s_i, cm = problem.s_bar(batch, view), {}
+        if san is not None:
+            flags["oracle"] = _finite_flags(s_i)
         out = problem.T(s_i) if param_space else s_i       # eq. 21
+        if san is not None and param_space:
+            flags["T"] = _finite_flags(out)
         if spec.delta == "oracle":
-            return out, cm
+            return out, cm, flags
         d = tree_sub(out, x_ref)                           # line 7
         if use_v:
             d = tree_sub(d, v_c)
-        return d, cm
+        if san is not None:
+            flags["drift"] = _finite_flags(d)
+        return d, cm, flags
+
+    def sanitized(flags, v_new):
+        """Queue the stage's flags (stacked over the local clients) and the
+        updated variates', gathered over the mesh's client dims."""
+        if use_v and tree_leaves(v_new):
+            flags = dict(flags, variates={
+                p: finite_flag(x, rows=True)
+                for p, x in tree_leaves_with_path(v_new)})
+        for stage, fl in flags.items():
+            if mesh is not None:
+                dims = collective.client_dims(topo, client_axis)
+                fl = {p: collective.gather_rows(f.to(torch.uint8), mesh, dims)
+                      for p, f in fl.items()}
+            san.check_flags(stage, fl)
 
     def compress(c, d):                                    # line 9
         key = seeds[c].tolist()
@@ -428,12 +498,12 @@ def _client_stage(problem: MMProblem, spec: FederationSpec, view, x_ref,
         else:
             agg = tree_map(torch.zeros_like, x_ref)
         v_i_new = tree_map(torch.empty_like, v_i) if use_v else ()
-        cms = []
+        cms, fls = [], []
         n_survive = torch.zeros((), dtype=torch.float32, device=mask.device)
         wire_bytes_client = None
         for c in range(n_local):
             v_c = _take(v_i, c) if use_v else None
-            d, cm = oracle(_take(client_batches, c), v_c)
+            d, cm, fl = oracle(_take(client_batches, c), v_c)
             payload_c = compress(c, d)
             del d
             surv_c = mask[c]
@@ -457,7 +527,10 @@ def _client_stage(problem: MMProblem, spec: FederationSpec, view, x_ref,
                                agg, q_c)
             n_survive = n_survive + surv_c
             cms.append(cm)
+            fls.append(fl)
         cmetrics = tree_map(lambda *xs: torch.stack(xs), *cms)
+        if san is not None:
+            sanitized(_stack_flags(fls), v_i_new)
         if two_tier and tier_finalize:
             agg, backbone_bytes = tier_boundary(spec, agg, edge_seeds, x_ref)
         return (agg, v_i_new, cmetrics, wire_bytes_client, n_survive,
@@ -471,19 +544,22 @@ def _client_stage(problem: MMProblem, spec: FederationSpec, view, x_ref,
     if oracle_loop:
         # one client's oracle and drift alive at a time: what stays is
         # its payload
-        parts, cms = [], []
+        parts, cms, fls = [], [], []
         for c in range(n_local):
-            d, cm = oracle(_take(client_batches, c),
-                           _take(v_i, c) if use_v else None)
+            d, cm, fl = oracle(_take(client_batches, c),
+                               _take(v_i, c) if use_v else None)
             parts.append(compress(lo + c, d))
             del d
             cms.append(cm)
+            fls.append(fl)
         cmetrics = tree_map(lambda *xs: torch.stack(xs), *cms)
+        flags = _stack_flags(fls)
     else:
         if use_v:
-            d_stack, cmetrics = torch.func.vmap(oracle)(client_batches, v_i)
+            d_stack, cmetrics, flags = torch.func.vmap(oracle)(client_batches,
+                                                               v_i)
         else:
-            d_stack, cmetrics = torch.func.vmap(
+            d_stack, cmetrics, flags = torch.func.vmap(
                 lambda b: oracle(b, None))(client_batches)
         parts = [compress(lo + c, _take(d_stack, c))
                  for c in range(n_local)]
@@ -538,6 +614,8 @@ def _client_stage(problem: MMProblem, spec: FederationSpec, view, x_ref,
         n_survive = (collective.sum_over(torch.sum(surv), mesh, dims)
                      if verify else torch.sum(mask))
         agg = tree_map(lambda a, x: a.to(x.dtype), part, x_ref)
+        if san is not None:
+            sanitized(flags, v_i_new)
         return (agg, v_i_new, cmetrics, wire_bytes_client, n_survive,
                 collective_bytes, backbone_bytes)
 
@@ -550,6 +628,8 @@ def _client_stage(problem: MMProblem, spec: FederationSpec, view, x_ref,
     q, v_i_new, surv = receive(payload, mask, (lo, hi), flags=corrupt)
     del payload
     n_survive = torch.sum(surv)
+    if san is not None:
+        sanitized(flags, v_i_new)
     if two_tier:
         agg = _edge_partials(q, mu, edge_ids, topo.n_edges)
         del q
@@ -562,11 +642,13 @@ def _client_stage(problem: MMProblem, spec: FederationSpec, view, x_ref,
 
 
 def _server_apply(problem: MMProblem, spec: FederationSpec,
-                  state: DriverState, agg, v_i_new, n_active, gamma):
+                  state: DriverState, agg, v_i_new, n_active, gamma,
+                  san: Optional[Sanitizer] = None):
     """The server half of Algorithm 2: normalization, the control-variate
     shift, the server update (custom server_opt, FedAvgM momentum, or the
     SA step + projection), the server variate update (line 17) and the
-    problem's aux update. Returns ``(new_state, h, aux_metrics)``."""
+    problem's aux update. Returns ``(new_state, h, aux_metrics)``. ``san``:
+    the ``Sanitizer`` the server stages' checks are queued into."""
     n, p, alpha = spec.n_clients, spec.participation, spec.alpha
     param_space = spec.aggregation == "parameter"
     use_v = spec.use_variates
@@ -585,6 +667,7 @@ def _server_apply(problem: MMProblem, spec: FederationSpec,
                 "claim the server update — fold the momentum into your "
                 "server_opt instead")
         x_new, opt_new = problem.server_opt(state.x, h, gamma, state.opt)
+        project = False
     elif spec.server_momentum > 0.0:
         opt_new = tree_map(
             lambda m, hh: (spec.server_momentum * m
@@ -592,18 +675,24 @@ def _server_apply(problem: MMProblem, spec: FederationSpec,
         x_new = tree_map(
             lambda mm, xx: (gamma * mm.to(xx.dtype) + xx).to(xx.dtype),
             opt_new, state.x)
-        if not param_space:
-            x_new = problem.project(x_new)
+        project = not param_space
     else:
         x_new = tree_map(
             lambda hh, xx: (gamma * hh.to(xx.dtype) + xx).to(xx.dtype),
             h, state.x)
-        if not param_space:
-            x_new = problem.project(x_new)
+        project = not param_space
         opt_new = state.opt
+    if san is not None:
+        san.check_finite("server_step", x_new)
+    if project:
+        x_new = problem.project(x_new)
+        if san is not None:
+            san.check_finite("project", x_new)
 
     v_new = (tree_map(lambda v, a: v + ((alpha / p) * a).to(v.dtype),
                       state.v, agg) if use_v else ())
+    if san is not None:
+        san.check_finite("variates", v_new, prefix="v")
 
     if problem.server_step is not None:
         aux_new, aux_metrics = problem.server_step(state.aux, x_new)
@@ -636,8 +725,7 @@ def centralized_step(problem: MMProblem, state: DriverState, batch, gamma):
 
 
 def _validate(spec: FederationSpec, mesh, client_axis, client_mode, uplink,
-              sanitize, audit_keys, dev: torch.device,
-              n_stage: Optional[int] = None) -> None:
+              dev: torch.device, n_stage: Optional[int] = None) -> None:
     """The knobs of a round, checked as the reference's
     ``_validate_topology`` checks them, plus what the port adds: the mesh
     is a ``DeviceMesh`` on the device the caller runs on, over NCCL on the
@@ -648,12 +736,6 @@ def _validate(spec: FederationSpec, mesh, client_axis, client_mode, uplink,
         raise ValueError(f"client_mode={client_mode!r} (want {CLIENT_MODES})")
     if uplink not in UPLINKS:
         raise ValueError(f"uplink={uplink!r} (want {UPLINKS})")
-    if sanitize:
-        raise NotImplementedError("sanitize=True belongs to ROADMAP Queue A "
-                                  "item 12")
-    if audit_keys:
-        raise NotImplementedError("audit_keys belongs to ROADMAP Queue A "
-                                  "item 12")
     if uplink == "reduce" and mesh is None:
         raise ValueError("uplink='reduce' is the cross-mesh partial-reduce "
                          "collective; it needs mesh= (without a mesh the "
@@ -724,12 +806,13 @@ def local_rows(spec: FederationSpec, mesh, client_axis: str = "clients",
     return b * per, (b + 1) * per
 
 
+@_under_key_audit
 def step(problem: MMProblem, spec: FederationSpec, state: DriverState,
          client_batches, gamma, key: Optional[torch.Generator] = None,
          active=None, *, seeds=None, edge_seeds=None, device=None,
          mesh=None, client_axis: str = "clients", client_mode: str = "vmap",
          uplink: str = "gather", drift_metric: bool = True,
-         sanitize: bool = False, audit_keys=False,
+         sanitize=False, audit_keys=False,
          cohort: Optional[CohortSlice] = None, fault_draws=None,
          _oracle_loop: bool = False):
     """One federated MM round. ``client_batches``: a pytree with a leading
@@ -756,17 +839,28 @@ def step(problem: MMProblem, spec: FederationSpec, state: DriverState,
     the bytes of the collective's operand: the gathered stack
     (``uplink="gather"``) or the float32 partial (``"reduce"``).
 
+    ``sanitize``: the stage checks (``analysis/runtime.py``), read once
+    at the end of the round, which raises ``SanitizerError`` naming the
+    round, the stage and the leaf; and the comm-bytes audit
+    (``assert_comm_audit``). A
+    ``Sanitizer`` instance queues the checks into it and leaves the raise
+    to its owner (the scheduler raises once a round). ``audit_keys``:
+    True, or a ``KeyAudit`` to read its report afterwards, audits the
+    round's draws (``analysis/keytrace.py``). Both only read: the round's
+    results are bit for bit those with both off.
+
     ``_oracle_loop``: internal, the LM trainer's route (the module
     docstring); it runs the ``"vmap"`` stage only."""
     problem = as_problem(problem)
     dev = resolve_device(device)
+    san = resolve_sanitizer(sanitize) if sanitize else None
     if cohort is not None:
         return _cohort_partial(problem, spec, state, client_batches, cohort,
                                dev=dev, mesh=mesh, client_axis=client_axis,
                                client_mode=client_mode, uplink=uplink,
-                               sanitize=sanitize, audit_keys=audit_keys)
-    _validate(spec, mesh, client_axis, client_mode, uplink, sanitize,
-              audit_keys, dev)
+                               san=san,
+                               own=san is not None and san is not sanitize)
+    _validate(spec, mesh, client_axis, client_mode, uplink, dev)
     n, p = spec.n_clients, spec.participation
     comp = spec.compressor
     use_wire = comp.encode is not None
@@ -784,6 +878,8 @@ def step(problem: MMProblem, spec: FederationSpec, state: DriverState,
                else ""))
 
     view = _broadcast_view(problem, spec, state)           # line 4
+    if san is not None and spec.aggregation != "parameter":
+        san.check_finite("T", view)
 
     n_leaves = len(tree_leaves(state.x))
     if key is not None:
@@ -829,14 +925,18 @@ def step(problem: MMProblem, spec: FederationSpec, state: DriverState,
         problem, spec, view, state.x, client_batches, state.v_i, seeds, mask,
         mu, client_mode=client_mode, uplink=uplink, mesh=mesh,
         client_axis=client_axis, rows=rows, edge_seeds=edge_seeds,
-        corrupt=corrupt, oracle_loop=_oracle_loop)
+        corrupt=corrupt, oracle_loop=_oracle_loop, san=san)
     new_state, metrics = apply_partial(
         problem, spec, state._replace(v_i=v_i_new), agg, n_survive, gamma,
-        drift_metric=drift_metric, device=dev)
+        drift_metric=drift_metric, device=dev, sanitize=san)
 
     comm = comp.round_metrics(state.x, p=p)
     per_client = (wire_bytes_client if use_wire
                   else comm["payload_bytes_per_client"])
+    if san is not None and use_wire:
+        assert_comm_audit(
+            comp, state.x, per_client,
+            where=f"step(client_mode={client_mode!r}, uplink={uplink!r})")
     uplink_bytes = per_client * torch.sum(mask)
     backbone = torch.tensor(0.0 if backbone_bytes is None else backbone_bytes,
                             dtype=torch.float32)
@@ -849,6 +949,8 @@ def step(problem: MMProblem, spec: FederationSpec, state: DriverState,
             collective_bytes, dtype=torch.float32)
     _merge_client_metrics(metrics, {k: torch.mean(v, dim=0)
                                    for k, v in cmetrics.items()})
+    if san is not None and san is not sanitize:
+        san.raise_if_tripped(lambda: f"round {int(state.step)}")
     return new_state, metrics
 
 
@@ -865,12 +967,14 @@ def _merge_client_metrics(metrics: dict, client_means: dict) -> None:
 def _cohort_partial(problem: MMProblem, spec: FederationSpec,
                     state: DriverState, client_batches, cohort: CohortSlice,
                     *, dev, mesh, client_axis, client_mode, uplink,
-                    sanitize, audit_keys) -> CohortPartial:
+                    san=None, own=False) -> CohortPartial:
     """``step(..., cohort=...)``: the client stage on one cohort, returning
     its ``CohortPartial``. The cohort's ``mu`` is the un-renormalized slice
     of the global weights, so the partials of a population's cohorts sum to
     the full weighted reduce (bit for bit for one full cohort, to
-    re-association otherwise)."""
+    re-association otherwise). ``san``: the ``Sanitizer`` the cohort's
+    checks are queued into (read here when ``own``), with the comm-bytes
+    audit."""
     if not isinstance(cohort, CohortSlice):
         raise TypeError(f"cohort= takes a CohortSlice, got "
                         f"{type(cohort).__name__}")
@@ -891,8 +995,7 @@ def _cohort_partial(problem: MMProblem, spec: FederationSpec,
             raise ValueError(
                 f"CohortSlice.{name} has leading dim "
                 f"{tuple(torch.as_tensor(arr).shape)[:1]} != cohort size {c}")
-    _validate(spec, mesh, client_axis, client_mode, uplink, sanitize,
-              audit_keys, dev, n_stage=c)
+    _validate(spec, mesh, client_axis, client_mode, uplink, dev, n_stage=c)
     comp = spec.compressor
     use_wire = comp.encode is not None
     state = DriverState(*(_to(f, dev) for f in state))
@@ -911,15 +1014,25 @@ def _cohort_partial(problem: MMProblem, spec: FederationSpec,
                else torch.as_tensor(cohort.corrupt, dtype=torch.bool))
 
     view = _broadcast_view(problem, spec, state)           # line 4
+    if san is not None and spec.aggregation != "parameter":
+        san.check_finite("T", view)
     (agg, v_i_new, cmetrics, wire_bytes_client, n_survive, collective_bytes,
      _) = _client_stage(
         problem, spec, view, state.x, client_batches, _to(cohort.v_i, dev),
         seeds, mask, mu, client_mode=client_mode, uplink=uplink, mesh=mesh,
         client_axis=client_axis, rows=rows, edge_ids=cohort.edge_ids,
-        corrupt=corrupt, tier_finalize=False)
+        corrupt=corrupt, tier_finalize=False, san=san)
+    if san is not None:
+        san.check_finite("aggregate", agg)
     comm = comp.round_metrics(state.x, p=spec.participation)
     per_client = (wire_bytes_client if use_wire
                   else comm["payload_bytes_per_client"])
+    if san is not None and use_wire:
+        assert_comm_audit(comp, state.x, per_client,
+                          where=f"step(cohort=..., client_mode="
+                                f"{client_mode!r}, uplink={uplink!r})")
+    if own:
+        san.raise_if_tripped("the cohort's client stage")
     every_client = c == spec.n_clients and (
         cohort.valid is None or bool(torch.as_tensor(cohort.valid).all()))
     if cohort.valid is None:
@@ -950,7 +1063,7 @@ def _cohort_partial(problem: MMProblem, spec: FederationSpec,
 
 def apply_partial(problem, spec: FederationSpec, state: DriverState, agg,
                   n_active, gamma, *, drift_metric: bool = True,
-                  device=None):
+                  device=None, sanitize=False):
     """Land an aggregate: the server half of a round. ``step`` lands its
     client stage's aggregate here; a scheduler lands the sum of its
     (possibly staleness-weighted) ``CohortPartial.agg`` terms.
@@ -959,15 +1072,20 @@ def apply_partial(problem, spec: FederationSpec, state: DriverState, agg,
     variates live in the scheduler's population arena. Returns
     ``(new_state, metrics)`` with the server-side metrics (``n_active``,
     ``omega_eff``, ``e_s``/``e_p``, ``h_norm_sq``, aux); the caller adds
-    the byte counts and ``_merge_client_metrics``."""
+    the byte counts and ``_merge_client_metrics``. ``sanitize``: the
+    server stages' checks (the aggregate, the server step, ``project``,
+    the server variate), as ``step``'s."""
     problem = as_problem(problem)
     dev = resolve_device(device)
+    san = resolve_sanitizer(sanitize) if sanitize else None
     state = DriverState(*(_to(f, dev) for f in state))
     agg = _to(agg, dev)
     param_space = spec.aggregation == "parameter"
     n_active = torch.as_tensor(n_active, dtype=torch.float32)
+    if san is not None:
+        san.check_finite("aggregate", agg)
     new_state, h, aux_metrics = _server_apply(
-        problem, spec, state, agg, state.v_i, n_active, gamma)
+        problem, spec, state, agg, state.v_i, n_active, gamma, san)
     comm = spec.compressor.round_metrics(state.x, p=spec.participation)
     metrics = {
         "n_active": n_active,
@@ -980,6 +1098,8 @@ def apply_partial(problem, spec: FederationSpec, state: DriverState, agg,
     if not param_space:
         metrics["h_norm_sq"] = tree_sq_norm_ew(h)
     metrics.update(aux_metrics)
+    if san is not None and san is not sanitize:
+        san.raise_if_tripped(lambda: f"round {int(state.step)}")
     return new_state, metrics
 
 
@@ -993,6 +1113,7 @@ def _as_generator(key) -> torch.Generator:
     return torch.Generator().manual_seed(int(key))
 
 
+@_under_key_audit
 def run(problem, x0, data, schedule, *, spec: Optional[FederationSpec] = None,
         key=None, n_rounds: Optional[int] = None, eval_batch=None,
         eval_every: int = 1, track_mirror: bool = False, diag=None,
@@ -1016,14 +1137,27 @@ def run(problem, x0, data, schedule, *, spec: Optional[FederationSpec] = None,
     data still come as all n clients' batches and every rank takes its own
     rows; ``state0``, where given, holds the rank's rows of ``v_i`` (see
     ``interop.state_for_rank``), and an ``init`` made here is cut to them.
-    ``collective_payload_bytes`` is stacked like every other metric."""
+    ``collective_payload_bytes`` is stacked like every other metric.
+
+    ``sanitize``/``audit_keys``: ``step``'s, every round (the key audit
+    over the whole run, the data's draws included); federated runs only.
+    A round whose checks trip raises at its end."""
+    if sanitize and spec is None:
+        raise ValueError("sanitize=True is the federated driver's runtime "
+                         "sanitizer; the centralized path does not run it "
+                         "— check centralized_step's outputs with "
+                         "analysis.runtime.Sanitizer yourself")
+    if audit_keys and spec is None:
+        raise ValueError("audit_keys=True audits the federated driver's "
+                         "generator chain; the centralized path draws "
+                         "nothing — activate a keytrace.KeyAudit yourself "
+                         "if your batch pipeline draws")
     problem = as_problem(problem)
     dev = resolve_device(device)
     if spec is None:
         return _run_centralized(problem, x0, data, schedule,
                                 n_rounds=n_rounds, state0=state0, device=dev)
-    _validate(spec, mesh, client_axis, client_mode, uplink, sanitize,
-              audit_keys, dev)
+    _validate(spec, mesh, client_axis, client_mode, uplink, dev)
     if key is None:
         raise ValueError("federated run needs a key (generator or seed)")
     gen = _as_generator(key)
@@ -1052,7 +1186,8 @@ def run(problem, x0, data, schedule, *, spec: Optional[FederationSpec] = None,
         batch = _rows(data(t, gen) if callable(data) else data, lo, hi)
         state, m = step(problem, spec, state, batch, gamma, gen, device=dev,
                         mesh=mesh, client_axis=client_axis,
-                        client_mode=client_mode, uplink=uplink)
+                        client_mode=client_mode, uplink=uplink,
+                        sanitize=sanitize)
         if t == 0:
             # torch.func's first vmap of a grad in a process leaves a
             # reference cycle holding that call's intermediates (client-

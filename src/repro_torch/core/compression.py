@@ -899,6 +899,9 @@ def rand_k(fraction: float) -> Compressor:
     omega = 1.0 / fraction - 1.0
 
     def leaf(seed, x):
+        if x.device.type == "meta":
+            # shape-only run: no draws to make
+            return torch.empty_like(x)
         gen = torch.Generator(device=x.device).manual_seed(int(seed))
         keep = torch.rand(tuple(x.shape), generator=gen,
                           device=x.device) < fraction

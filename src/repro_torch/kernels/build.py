@@ -117,10 +117,11 @@ def aligned(t):
 
 
 def route(x, what: str) -> str:
-    """'plain' for CPU (and shape-only meta) tensors, 'cuda' for CUDA
-    tensors; any other device is refused."""
-    if x.device.type in ("cpu", "meta"):
+    """'plain' for CPU tensors, 'cuda' for CUDA tensors, 'meta' for
+    shape-only meta tensors (the wrapper returns empty outputs of its
+    kernel's shapes and dtypes); any other device is refused."""
+    if x.device.type == "cpu":
         return "plain"
-    if x.device.type == "cuda":
-        return "cuda"
+    if x.device.type in ("cuda", "meta"):
+        return x.device.type
     raise ValueError(f"no {what} kernel for device {x.device}")

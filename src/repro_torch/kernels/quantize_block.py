@@ -17,9 +17,11 @@ Counterparts of the Pallas kernels in ``repro/kernels/quantize_block.py``:
   first, as ``decode`` rounds a bf16 leaf (the reference keeps such
   leaves off its kernel).
 
-Each wrapper takes its plain version for tensors on the CPU (and for
-shape-only ``meta`` tensors), launches its kernel for CUDA tensors, and
-raises for anything else. A CUDA tensor never falls back to the plain
+Each wrapper takes its plain version for tensors on the CPU, launches
+its kernel for CUDA tensors, returns empty outputs of its kernel's shapes
+and dtypes for shape-only ``meta`` tensors (so a dry run counts no
+temporaries the kernels never make: the plain versions' hash dither
+holds an int64 index of the whole leaf), and raises for anything else. A CUDA tensor never falls back to the plain
 version. The kernels live in ``csrc/quantize_block.cu``; the library is
 built with ``nvcc`` at first use into ``build/`` at the root of the
 checkout and bound through ``ctypes`` (``kernels/build.py``).
@@ -205,11 +207,14 @@ def quantize_grouped(x2, u2=None, *, bits: int = 8, group: int = 256,
     _check_grouped(x2, group, bits)
     if u2 is None and seed is None:
         raise ValueError("need streamed draws u2 or an in-kernel dither seed")
-    if B.route(x2, "quantizer") == "plain":
+    where = B.route(x2, "quantizer")
+    if where == "plain":
         return quantize_grouped_plain(x2, u2, bits=bits, group=group,
                                       seed=seed)
     _check_kernel_args(x2, u2, group)
     out = torch.empty_like(x2)
+    if where == "meta":
+        return out
     rc = _lib().qb_quantize(
         x2.data_ptr(), None if u2 is None else u2.data_ptr(), out.data_ptr(),
         x2.shape[0], x2.shape[1], group, bits,
@@ -228,7 +233,8 @@ def quantize_encode_grouped(x2, u2=None, *, bits: int = 8, group: int = 256,
     _check_grouped(x2, group, bits)
     if u2 is None and seed is None:
         raise ValueError("need streamed draws u2 or an in-kernel dither seed")
-    if B.route(x2, "quantizer") == "plain":
+    where = B.route(x2, "quantizer")
+    if where == "plain":
         return quantize_encode_grouped_plain(x2, u2, bits=bits, group=group,
                                              seed=seed)
     _check_kernel_args(x2, u2, group)
@@ -236,6 +242,8 @@ def quantize_encode_grouped(x2, u2=None, *, bits: int = 8, group: int = 256,
     codes = torch.empty((R, D), dtype=torch.int8, device=x2.device)
     scales = torch.empty((R, D // group), dtype=torch.float32,
                          device=x2.device)
+    if where == "meta":
+        return codes, scales
     rc = _lib().qb_encode(
         x2.data_ptr(), None if u2 is None else u2.data_ptr(),
         codes.data_ptr(), scales.data_ptr(), R, D, group, bits,
@@ -264,7 +272,8 @@ def decode_reduce_grouped(codes, scales, w, *, bits: int = 8,
                          f"{(C, R, D // group)}")
     if tuple(w.shape) != (C,):
         raise ValueError(f"w shape {tuple(w.shape)} != {(C,)}")
-    if B.route(codes, "quantizer") == "plain":
+    where = B.route(codes, "quantizer")
+    if where == "plain":
         return decode_reduce_grouped_plain(codes, scales,
                                            w.to(torch.float32), bits=bits,
                                            group=group, round_to=round_to)
@@ -275,6 +284,8 @@ def decode_reduce_grouped(codes, scales, w, *, bits: int = 8,
     _require(scales, "scales", torch.float32, codes.device, vector=False)
     _require(w, "w", torch.float32, codes.device, vector=False)
     out = torch.empty((R, D), dtype=torch.float32, device=codes.device)
+    if where == "meta":
+        return out
     rc = _lib().qb_decode_reduce(
         codes.data_ptr(), scales.data_ptr(), w.data_ptr(), out.data_ptr(),
         C, R, D, group, bits, int(round_to is not None),

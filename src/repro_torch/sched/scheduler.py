@@ -55,9 +55,17 @@ uninterrupted run bit for bit (the kill point is off on resume).
 ``seeds``, ``edge_seeds``, ``drop``, ``corrupt``, ``fail_u``,
 ``straggle``) replace what the round (or wave) ``index`` drew; the
 tests hand in the reference's draws this way.
+
+Runtime checks: ``run``/``resume(sanitize=True)`` queue each cohort's and
+each landing's stage checks (``analysis/runtime.py``; and the cohorts'
+client ids against the population) into one ``Sanitizer`` read once a
+server update, and run the comm-bytes audit on every cohort;
+``audit_keys`` audits the whole drive's draws (``analysis/keytrace.py``):
+an audited ``resume`` draws the uninterrupted run's suffix.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import glob
 import math
@@ -69,6 +77,8 @@ import numpy as np
 import torch
 
 from ..analysis import hb
+from ..analysis.keytrace import resolve_audit
+from ..analysis.runtime import Sanitizer
 from ..api import collective
 from ..api.driver import (CohortPartial, CohortSlice, DriverState,
                           _as_generator, _merge_client_metrics,
@@ -86,8 +96,6 @@ from .population import ClientPopulation
 
 # round snapshots kept on disk (older ones are pruned after each publish)
 _CKPT_KEEP = 3
-
-_ITEM_12 = "belongs to ROADMAP Queue A item 12"
 
 
 def _host(x):
@@ -265,6 +273,7 @@ class CohortScheduler:
                 "use uplink='gather' under the scheduler")
         self._ckpt_writer = None
         self._gc_pending = False
+        self._san = None            # the drive's Sanitizer, under sanitize
         # with a cohort-failure axis, client-local effects (the variate
         # scatter, the participation counts) commit at DELIVERY, since a
         # failed attempt never reached the server; without one, at compute
@@ -343,6 +352,8 @@ class CohortScheduler:
     def _run_cohort(self, state, batch, ids, valid, wave,
                     pop: ClientPopulation):
         spec, dev = self.spec, self.device
+        if self._san is not None:
+            self._san.check_index("cohort", "client ids", ids, pop.n_total)
         mask = wave["active"][ids].astype(np.float32) * valid
         mu_s = pop.mu[ids] * valid
         v_i = pop.gather_variates(ids, dev) if spec.use_variates else ()
@@ -365,7 +376,7 @@ class CohortScheduler:
                        device=dev, mesh=self.mesh,
                        client_axis=self.client_axis,
                        client_mode=self.client_mode, uplink=self.uplink,
-                       cohort=cohort)
+                       cohort=cohort, sanitize=self._san or False)
         del batch, v_i, cohort
         if self._gc_pending:
             # torch.func's first vmap of a grad in a process leaves a cycle
@@ -419,7 +430,10 @@ class CohortScheduler:
         n_active = zero if buffer.n_active is None else buffer.n_active
         state, m = apply_partial(self.problem, spec, state, agg, n_active,
                                  gamma, drift_metric=self.drift_metric,
-                                 device=self.device)
+                                 device=self.device,
+                                 sanitize=self._san or False)
+        if self._san is not None:
+            self._san.raise_if_tripped(f"server update {t_idx}")
         del agg
         buffer.agg = None
         # the bill sums exactly in float64 and rounds once, here
@@ -596,8 +610,7 @@ class CohortScheduler:
             _SnapshotWriter._write(path, snap, ckpt_dir)
 
     # -- driving loops --------------------------------------------------------------
-    def _check_run(self, mode, n_rounds, schedule, population, x0,
-                   sanitize, audit_keys):
+    def _check_run(self, mode, n_rounds, schedule, population, x0):
         if mode not in ("sync", "async"):
             raise ValueError(f"mode={mode!r} (want 'sync' or 'async')")
         if mode == "async" and self._two_tier:
@@ -606,10 +619,6 @@ class CohortScheduler:
                 "tier boundary re-encodes with the LANDING round's seeds, "
                 "and the async window lands cohorts from different waves "
                 "into one update — use mode='sync'")
-        if sanitize:
-            raise NotImplementedError(f"sanitize=True {_ITEM_12}")
-        if audit_keys:
-            raise NotImplementedError(f"audit_keys {_ITEM_12}")
         if n_rounds is None:
             n_rounds = schedule_length(schedule)
             if n_rounds is None:
@@ -659,9 +668,16 @@ class CohortScheduler:
         update lands. ``draws``: see the module docstring.
 
         Returns ``(DriverState, ClientPopulation, metrics)``, the metrics
-        stacked with one row per server update."""
+        stacked with one row per server update.
+
+        ``sanitize``: the stage checks of every cohort and landing, read
+        once a server update (which raises ``SanitizerError`` naming it,
+        the stage and the leaf), and the comm-bytes audit on every cohort;
+        ``audit_keys``: True, or a ``KeyAudit`` to read its report, audits
+        the run's draws. Both only read: trajectories are bit for bit
+        those with both off."""
         n_rounds, gammas, population = self._check_run(
-            mode, n_rounds, schedule, population, x0, sanitize, audit_keys)
+            mode, n_rounds, schedule, population, x0)
         if checkpoint_every < 1:
             raise ValueError(f"checkpoint_every must be >= 1, got "
                              f"{checkpoint_every}")
@@ -672,8 +688,9 @@ class CohortScheduler:
                            gen.initial_seed(), n_rounds, population,
                            eval_batch, eval_every, max_inflight,
                            buffer_cohorts, delay_fn, checkpoint_dir,
-                           checkpoint_every, draws, kill_enabled=True,
-                           start_round=0, rows=None, resume_ctx=None)
+                           checkpoint_every, draws, sanitize, audit_keys,
+                           kill_enabled=True, start_round=0, rows=None,
+                           resume_ctx=None)
 
     def resume(self, x0, data_fn, schedule, *, checkpoint_dir: str,
                n_rounds: Optional[int] = None,
@@ -691,9 +708,10 @@ class CohortScheduler:
         template), the population, the metric rows and (async) the
         window. Pass the crashed run's ``x0``, ``data_fn``, ``schedule``
         and knobs. The kill point is off on resume. Returns what ``run``
-        returns, over the whole run."""
+        returns, over the whole run. ``sanitize``/``audit_keys``: as
+        ``run``'s, over the resumed rounds."""
         n_rounds, gammas, population = self._check_run(
-            mode, n_rounds, schedule, population, x0, sanitize, audit_keys)
+            mode, n_rounds, schedule, population, x0)
         paths = sorted(glob.glob(os.path.join(checkpoint_dir,
                                               "round_*.snap")))
         if not paths:
@@ -737,13 +755,31 @@ class CohortScheduler:
                            snap["key"]["fault_seed"], n_rounds, population,
                            eval_batch, eval_every, max_inflight,
                            buffer_cohorts, delay_fn, checkpoint_dir,
-                           checkpoint_every, draws, kill_enabled=False,
-                           start_round=cursor, rows=rows,
+                           checkpoint_every, draws, sanitize, audit_keys,
+                           kill_enabled=False, start_round=cursor, rows=rows,
                            resume_ctx=resume_ctx)
 
     def _drive(self, mode, state, data_fn, gammas, gen, fault_seed, n_rounds,
                pop, eval_batch, eval_every, max_inflight, buffer_cohorts,
-               delay_fn, checkpoint_dir, checkpoint_every, draws, **kw):
+               delay_fn, checkpoint_dir, checkpoint_every, draws, sanitize,
+               audit_keys, **kw):
+        audit = resolve_audit(audit_keys)
+        with (audit.activate() if audit is not None
+              else contextlib.nullcontext()):
+            self._san = Sanitizer() if sanitize else None
+            try:
+                return self._drive_loop(
+                    mode, state, data_fn, gammas, gen, fault_seed, n_rounds,
+                    pop, eval_batch, eval_every, max_inflight,
+                    buffer_cohorts, delay_fn, checkpoint_dir,
+                    checkpoint_every, draws, **kw)
+            finally:
+                self._san = None
+
+    def _drive_loop(self, mode, state, data_fn, gammas, gen, fault_seed,
+                    n_rounds, pop, eval_batch, eval_every, max_inflight,
+                    buffer_cohorts, delay_fn, checkpoint_dir,
+                    checkpoint_every, draws, **kw):
         self._gen_device = gen.device
         self._gc_pending = True
         if eval_batch is not None:

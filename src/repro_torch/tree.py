@@ -92,3 +92,29 @@ def tree_map(fn: Callable, tree: Pytree, *rest: Pytree,
     return tree_unflatten(
         treedef, [fn(x, *(o[0][i] for o in others))
                   for i, x in enumerate(leaves)])
+
+
+def _walk_paths(x, is_leaf, prefix: str, out: list) -> None:
+    if x is None:
+        return
+    if (is_leaf is not None and is_leaf(x)) or not _is_node(x):
+        out.append((prefix, x))
+        return
+    kids, (kind, aux) = _children(x)
+    if kind == "dict":
+        names = [f"[{k!r}]" for k in aux]
+    elif kind == "namedtuple":
+        names = [f".{f}" for f in aux._fields]
+    else:
+        names = [f"[{i}]" for i in range(len(kids))]
+    for name, kid in zip(names, kids):
+        _walk_paths(kid, is_leaf, prefix + name, out)
+
+
+def tree_leaves_with_path(tree: Pytree,
+                          is_leaf: Optional[Callable] = None) -> list:
+    """``(path, leaf)`` pairs in leaf order, each path written as
+    ``jax.tree_util.keystr`` writes it (``['w']``, ``[0]``, ``.x``)."""
+    out = []
+    _walk_paths(tree, is_leaf, "", out)
+    return out

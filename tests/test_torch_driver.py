@@ -330,8 +330,6 @@ def test_step_rejects_what_is_not_ported():
     for kw, err in ((dict(mesh=object()), TypeError),
                     (dict(mesh=object(), client_mode="scan"), ValueError),
                     (dict(cohort=object()), TypeError),
-                    (dict(sanitize=True), NotImplementedError),
-                    (dict(audit_keys=True), NotImplementedError),
                     (dict(uplink="reduce"), ValueError),
                     (dict(client_mode="pmap"), ValueError)):
         with pytest.raises(err):

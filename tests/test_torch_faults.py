@@ -549,12 +549,18 @@ def test_checkpoint_pruning_and_resume_errors(tmp_path):
         CohortScheduler(tp, spec, cohort_size=4, device="cpu").resume(
             torch.zeros(dim + 1), lambda t, g, ids: None, 0.3,
             checkpoint_dir=ck, n_rounds=6)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        sched.run(torch.zeros(dim), data_fn, 0.3, key=0, n_rounds=1,
-                  sanitize=True)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        sched.run(torch.zeros(dim), data_fn, 0.3, key=0, n_rounds=1,
-                  audit_keys=True)
+    # the runtime checks only read: sanitized and audited runs, and an
+    # audited, sanitized resume, are the plain run bit for bit
+    for kw in (dict(sanitize=True), dict(audit_keys=True)):
+        st3, _, m3 = sched.run(torch.zeros(dim), data_fn, 0.3, key=0,
+                               n_rounds=6, **kw)
+        _bits(st.x, st3.x)
+        _metrics_bit_equal(m_ref, m3)
+    st4, _, m4 = sched.resume(torch.zeros(dim), data_fn, 0.3,
+                              checkpoint_dir=ck, n_rounds=6, sanitize=True,
+                              audit_keys=True)
+    _bits(st.x, st4.x)
+    _metrics_bit_equal(m_ref, m4)
 
 
 def test_resume_midway_without_kill(tmp_path):
