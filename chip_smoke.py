@@ -33,7 +33,9 @@ points at full width and checks what comes out:
    audited and sanitized scheduler round bit for bit the plain one, and
    ``check_compressor`` of the in-kernel-dither quantizer over
    gemma3-12b's full-width parameter tree on ``meta`` tensors (a child
-   process run beside the build);
+   process run beside the build, which first runs the port's linter, as
+   ``python -m repro_torch.analysis src/repro_torch --strict``: the
+   ``lint`` record, exit 0 required);
 2. serving (``repro_torch.launch.serve.serve``: prefill, then greedy
    decode with the ring-buffer KV cache) of phi3-medium-14b (40 layers,
    bf16, the flash-attention kernel in every prefill layer; then the
@@ -94,7 +96,11 @@ points at full width and checks what comes out:
    each round from one state with the same draws (the fused decode +
    reduce on each layer's ``wq`` in every reduce round);
    ``repro_torch.launch.train`` at the ``100m`` and ``smoke`` presets,
-   and three smoke rounds on the card against the CPU;
+   and three smoke rounds on the card against the CPU; then the kernel
+   microbenchmarks (the ``kernel_bench`` phase: ``repro_torch.
+   benchmarks.kernel_bench``'s ``--smoke`` rows, once, each kernel row
+   launching its CUDA kernel; times only, no gate; then each kernel
+   row's call held against its plain version on the same tensors);
 5. the roofline (the ``roofline`` phase, the card idle): each timed
    prefill and train round beside the same step counted on ``meta``
    tensors at one chip (the dry run's ``count_serve`` and
@@ -202,17 +208,23 @@ CONSISTENCY_TOL = 5e-3            # tests/test_models_smoke.py, float32
 BF16_TOL = {"atol": 4e-3, "rtol": 1.6e-2}
 FLASH_TOL = {"float32": {"atol": 2e-5, "rtol": 2e-4}, "bfloat16": BF16_TOL}
 RWKV_TOL = {"y": BF16_TOL, "state": {"atol": 1e-4, "rtol": 1e-4}}
+RWKV_F32_TOL = {"y": FLASH_TOL["float32"], "state": RWKV_TOL["state"]}
 # the old bf16 limit (rtol = atol = 3e-2), reported beside the planted
 # faults to show what it let through
 LOOSE_BF16_TOL = {"atol": 3e-2, "rtol": 3e-2}
 
 # the H100 SXM's memory rate, float32 (non-tensor-core) rate and bf16
 # tensor-core rate, from NVIDIA's data sheet: the card the bounds are
-# stated for (repro_torch.launch.roofline, which the dry run reads too)
+# stated for (repro_torch.launch.roofline, which the dry run reads too);
+# the one timer and bound of the port's kernel measurements, and the
+# quantizer kernels' operations per element (repro_torch.benchmarks.
+# timing, which kernel_bench shares)
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 from repro_torch.launch.roofline import (  # noqa: E402
     HBM_BW as H100_BYTES_PER_S, PEAK_FLOPS_BF16 as BF16_OPS_PER_S,
     PEAK_FLOPS_F32 as F32_OPS_PER_S)
+from repro_torch.benchmarks.timing import (  # noqa: E402
+    OPS_DEQ, OPS_HASH, OPS_REDUCE, OPS_ROUND, bound, time_ms)
 
 REPLACES = {
     "quantize": "src/repro/kernels/quantize_block.py:205",
@@ -259,13 +271,6 @@ DEVICE_CHECK_ROUNDS, DEVICE_RTOL = 10, 1e-4
 FIG3_DIMS, FIG3_ROUNDS, FIG3_GATE_DIM = (16, 32, 64), 100, 16
 FIG3_WIDE_ROUNDS = 20
 
-# operations per element, counted from the kernels' source: the rounding
-# (abs, max, div, mul, floor, sub, compare, add, and for the dequantize two
-# multiplies and a select), the murmur hash (two multiplies, an add, three
-# shifts, three xors, a shift, a convert, a multiply), and the reduce's
-# convert, two multiplies, select, multiply and add per client
-OPS_ROUND, OPS_DEQ, OPS_HASH, OPS_REDUCE = 8, 3, 12, 6
-
 
 # the script has 1200 s: a run still going after WATCHDOG_S prints every
 # thread's stack to standard error and exits non-zero
@@ -299,34 +304,9 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, iters: int, warmup: int = 2) -> float:
-    """Mean device time of ``fn`` over ``iters`` launches (CUDA events)."""
-    import torch
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 def require(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
-
-
-def bound(nbytes: float, ops: float, ops_per_s: float):
-    """(bound_ms, bound_by): the larger of the bytes over the memory rate
-    and the operations over the peak rate of their type."""
-    by_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    by_ops = ops / ops_per_s * 1e3
-    return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops
-                                   else "operations")
 
 
 def ptxas_report(report: str, entry: str, smem_bytes: int) -> dict:
@@ -883,16 +863,40 @@ NAN_CLIENT, SANITIZE_COHORT = 3, N_CLIENTS // 2
 CONTRACTS_CHILD, CONTRACTS_ARCH = "--contracts-child", "gemma3-12b"
 
 
+def lint_record() -> dict:
+    """``python -m repro_torch.analysis src/repro_torch --strict``, called
+    in this process (standard library only: it needs neither JAX nor the
+    card): its exit code, files, active findings, allow-pragmas and
+    seconds."""
+    import contextlib
+    import io
+    import tempfile
+    from repro_torch.analysis.__main__ import main as lint_main
+    tree = str(Path(__file__).resolve().parent / "src" / "repro_torch")
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp, \
+            contextlib.redirect_stdout(out), contextlib.redirect_stderr(out):
+        rc = lint_main([tree, "--strict", "--json", f"{tmp}/lint.json"])
+        report = json.loads(Path(tmp, "lint.json").read_text())
+    return {"phase": "lint", "rc": rc, "files": len(report["files"]),
+            "findings": report["n_findings"], "pragmas": report["n_pragmas"],
+            "output": out.getvalue().splitlines()[-20:],
+            "seconds": time.perf_counter() - t0}
+
+
 def contracts_child() -> dict:
     """``check_compressor`` of the slice's quantizer with the dither made
     in the kernel over CONTRACTS_ARCH's full-width, full-depth parameter
-    tree on ``meta`` tensors (no card; nothing allocated, no launch)."""
+    tree on ``meta`` tensors (no card; nothing allocated, no launch); and
+    before it the linter's record (``lint_record``)."""
     from repro_torch import configs
     from repro_torch.analysis import check_compressor
     from repro_torch.core import compression as C
     from repro_torch.kernels import quantize_block as qb
     from repro_torch.launch.dryrun import meta_params
     from repro_torch.tree import tree_leaves
+    lint = lint_record()
     t0 = time.perf_counter()
     tree = meta_params(configs.get(CONTRACTS_ARCH))
     report = check_compressor(C.block_quant(BITS, BLOCK, dither="kernel"),
@@ -901,7 +905,7 @@ def contracts_child() -> dict:
             "leaves": len(tree_leaves(tree)),
             "parameters": sum(x.numel() for x in tree_leaves(tree)),
             "launches": sum(qb.LAUNCHES.values()),
-            "seconds": time.perf_counter() - t0}
+            "seconds": time.perf_counter() - t0, "lint": lint}
 
 
 def start_contracts():
@@ -921,7 +925,8 @@ def start_contracts():
 def join_contracts(started) -> dict:
     """The child of ``start_contracts``: its record, whose report must be
     ``ok`` with every contract of a wire-format compressor checked and no
-    kernel launched; and how long the join waited."""
+    kernel launched, and whose lint record must show the linter's
+    ``--strict`` run exiting 0; and how long the join waited."""
     child, logs = started
     t0 = time.perf_counter()
     try:
@@ -943,6 +948,9 @@ def join_contracts(started) -> dict:
         "payload-bytes", "decode-reduce", "reencode"},
         f"check_compressor over {CONTRACTS_ARCH}'s tree: {report}")
     require(record["launches"] == 0, "check_compressor launched a kernel")
+    lint = record["lint"]
+    require(lint["rc"] == 0 and lint["files"] > 0,
+            f"the port's linter --strict: {lint}")
     return dict(record, wait_seconds=time.perf_counter() - t0)
 
 
@@ -4055,6 +4063,89 @@ def profile_rounds():
               "rounds": SANITIZE_ROUNDS, **rec})
 
 
+# ---------------------------------------------------------------------------
+# the kernel_bench phase: the kernel microbenchmarks' --smoke rows
+# ---------------------------------------------------------------------------
+
+# each kernel row of kernel_bench --smoke and the launch counter its
+# wrapper adds to (quantize_block.LAUNCHES, flash_attention.LAUNCHES,
+# rwkv_scan.LAUNCHES)
+BENCH_ROW_COUNTERS = {
+    "quantize_block_cuda_4k": "quantize_block",
+    "quantize_grouped_streamed_dither_16x1024": "quantize",
+    "quantize_grouped_kernel_dither_16x1024": "quantize_seeded",
+    "quantize_encode_streamed_dither_16x1024": "encode",
+    "quantize_encode_kernel_dither_16x1024": "encode_seeded",
+    "flash_attention_cuda_128": "flash_attention",
+    "rwkv_scan_cuda_64": "rwkv_scan",
+}
+
+
+def kernel_bench_phase() -> dict:
+    """``kernel_bench.run(smoke=True)`` on the card, once, with every
+    launch count set to 0 before it: its rows, each kernel row's launches
+    (each must have launched its CUDA kernel), and both ``wire_bytes``
+    rows' ``analytic_match=1``. The rows are times and pass or fail no
+    gate (``check_kernel_bench`` is not run here). After the counts are
+    read, each kernel row's call is held against its plain version on
+    the same tensors (``kernel_bench.pairs``): the quantizers bit for
+    bit, flash attention and the WKV6 scan (float32) at FLASH_TOL and
+    RWKV_F32_TOL."""
+    import torch
+    from repro_torch.benchmarks import kernel_bench
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import quantize_block as qb
+    from repro_torch.kernels import rwkv_scan as rs
+    for mod in (qb, fa, rs):
+        mod.reset_launches()
+    t0 = time.perf_counter()
+    rows = kernel_bench.run(smoke=True)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {**qb.LAUNCHES, **fa.LAUNCHES, **rs.LAUNCHES}
+    names = [name for name, _, _ in rows]
+    for name, counter in BENCH_ROW_COUNTERS.items():
+        require(name in names and launches[counter] > 0,
+                f"kernel_bench: row {name} did not launch its kernel "
+                f"({counter}: {launches[counter]})")
+    wire = {name: derived for name, _, derived in rows
+            if name.startswith("wire_bytes_")}
+    require(len(wire) == 2 and all("analytic_match=1" in d
+                                   for d in wire.values()),
+            f"kernel_bench: wire_bytes rows {wire}")
+    checks = []
+    for name, kern, plain in kernel_bench.pairs(smoke=True):
+        got, want = kern(), plain()
+        got, want = ((got, want) if isinstance(got, tuple)
+                     else ((got,), (want,)))
+        check = {"row": name, "max_abs_err": max(
+            max_abs_err(a, b) for a, b in zip(got, want))}
+        if name.startswith("quantize_"):
+            check["bits_equal"] = all(bits_equal(a, b)
+                                      for a, b in zip(got, want))
+            ok = check["bits_equal"]
+        else:
+            tols = ((FLASH_TOL["float32"],) if name.startswith("flash_")
+                    else (RWKV_F32_TOL["y"], RWKV_F32_TOL["state"]))
+            check["worst_ratio"] = max(worst_ratio(a, b, tol) for a, b, tol
+                                       in zip(got, want, tols))
+            check["tol"] = tols
+            ok = all(a.dtype == b.dtype and a.shape == b.shape
+                     for a, b in zip(got, want)) and \
+                check["worst_ratio"] <= 1.0
+        require(ok, f"kernel_bench: {name} differs from its plain version "
+                    f"({check})")
+        checks.append(check)
+    require(sorted(c["row"] for c in checks) == sorted(BENCH_ROW_COUNTERS),
+            f"kernel_bench: checked rows {[c['row'] for c in checks]}")
+    return {"phase": "kernel_bench", "smoke": True,
+            "rows": [{"name": n, "us": us, "derived": d}
+                     for n, us, d in rows],
+            "launches": {k: v for k, v in launches.items() if v},
+            "checks": checks, "seconds": seconds,
+            "check_seconds": time.perf_counter() - t0 - seconds}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4188,7 +4279,9 @@ def main() -> int:
     slice_out = drive_slice(keep)
     emit(dict(slice_out, card=card))
     sanitize_out = sanitize_phase(keep, contracts)
+    lint = sanitize_out["contracts"].pop("lint")
     emit(dict(sanitize_out, card=card))
+    emit(lint)
     del keep
 
     _free()
@@ -4263,6 +4356,8 @@ def main() -> int:
     _free()
     bwd_rows, train_launches, mesh_launches, train_seconds = train_phase(
         card, profile)
+    bench = kernel_bench_phase()
+    emit(dict(bench, card=card))
     # nothing runs on the card from here: the counts on meta tensors, side
     # by side on the host
     try:
@@ -4281,11 +4376,15 @@ def main() -> int:
                      + list(bwd_rows.items())):
         by_path = row.setdefault("launches_by_path", {})
         for path, counts in (("train", train_launches),
-                             ("train_mesh", mesh_launches)):
+                             ("train_mesh", mesh_launches),
+                             ("kernel_bench", bench["launches"])):
             n = sum(counts.get(c, 0) for c in ROW_COUNTS.get(key, (key,)))
             if n:
                 by_path[path] = n
-        row["launches"] = sum(by_path.values())
+        # the microbenchmarks' launches are reported beside the paths',
+        # not added to them
+        row["launches"] = sum(n for path, n in by_path.items()
+                              if path != "kernel_bench")
     for key, row in bwd_rows.items():
         require(row["launches_by_path"].get("train", 0) > 0,
                 f"{key} was not launched on the train path")

@@ -1,6 +1,5 @@
 """Benchmark entry point and the shared figure harness (the counterpart of
-the reference's ``benchmarks/run.py``; its kernel microbenchmarks are not
-ported yet).
+the reference's ``benchmarks/run.py``).
 
 ``harness`` is the one run loop the figure reproductions build on: it
 drives ``repro_torch.api.run``, times the trajectory (``api.run``'s history
@@ -8,12 +7,16 @@ is read back to the host, so the time includes the device's work), and
 returns the history as a list of float dicts.
 
     python -m repro_torch.benchmarks.run [--full] [--device cpu] \
-        [--skip fig1,fig2,fig3,roofline]
+        [--skip kernels,fig1,fig2,fig3,roofline]
+    python -m repro_torch.benchmarks.run kernels [--smoke] [--device cpu] \
+        [--json out.json]
     python -m repro_torch.benchmarks.run roofline [--markdown]
 
-``roofline`` renders the roofline table of the dry run's records
-(``roofline_table``) and nothing else; the figure run ends with it when
-records exist.
+``kernels`` runs the kernel microbenchmarks (``kernel_bench``: CSV rows
+``name,us_per_call,derived``) and nothing else; the full run starts with
+them (the reference's sizes, not ``--smoke``). ``roofline`` renders the
+roofline table of the dry run's records (``roofline_table``) and nothing
+else; the full run ends with it when records exist.
 
 Reduced sizes by default (Fig. 1 and Fig. 2 80 rounds; Fig. 3 dims 4, 8,
 16 and 40 rounds); ``--full`` is the paper's scale (300 rounds; Fig. 3
@@ -46,7 +49,8 @@ def figure_args(doc: str, argv=None, skip: bool = False):
     ap.add_argument("--device", default=None,
                     help="torch device (default: the GPU)")
     if skip:
-        ap.add_argument("--skip", default="", help="comma list: fig1,fig2,fig3,roofline")
+        ap.add_argument("--skip", default="",
+                        help="comma list: kernels,fig1,fig2,fig3,roofline")
     return ap.parse_args(argv)
 
 
@@ -57,12 +61,21 @@ def main(argv=None) -> None:
         from . import roofline_table
         roofline_table.main(argv[1:])
         return
+    if argv[:1] == ["kernels"]:
+        from . import kernel_bench
+        kernel_bench.main(argv[1:])
+        return
     args = figure_args(__doc__, argv, skip=True)
     skip = set(args.skip.split(","))
     reduced = not args.full
     rounds = 300 if args.full else 80
+    if "kernels" not in skip:
+        print("=== kernel microbenchmarks (name,us_per_call,derived) ===")
+        from . import kernel_bench
+        kernel_bench.main([] if args.device is None
+                          else ["--device", args.device])
     if "fig1" not in skip:
-        print("=== Figure 1: aggregation space (FedMM vs naive) ===")
+        print("\n=== Figure 1: aggregation space (FedMM vs naive) ===")
         from . import fig1_dictlearn
         fig1_dictlearn.main(reduced=reduced, rounds=rounds,
                             device=args.device)

@@ -113,11 +113,13 @@ def start_fake_group(world: int) -> None:
     """A ``"fake"`` process group of ``world`` ranks (this process rank 0)
     unless one that large is running; a smaller fake one is replaced."""
     if dist.is_initialized():
-        if dist.get_world_size() >= world:
+        # repro: allow[RPL001] the dry run's fake group is the whole world
+        running = dist.get_world_size()
+        if running >= world:
             return
         if dist.get_backend() != "fake":
             raise RuntimeError(f"a {dist.get_backend()} process group of "
-                               f"{dist.get_world_size()} ranks is running; "
+                               f"{running} ranks is running; "
                                f"the dry run needs {world}")
         dist.destroy_process_group()
     from torch.testing._internal.distributed.fake_pg import FakeStore

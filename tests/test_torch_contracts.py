@@ -345,3 +345,22 @@ def test_meta_encode_counts_no_leaf_sized_temporaries():
     need = 4 * R * D + R * D + 4 * R * D // g
     assert counts["peak_bytes"] <= need + (1 << 20), counts["peak_bytes"]
     assert counts["peak_bytes"] >= need
+
+
+def test_cli_contract_sweep_matches_the_reference(capsys):
+    """``python -m repro_torch.analysis --contracts`` gives the reference's
+    ``--contracts`` list: the same (compressor, checksum, verdict) lines in
+    the same order, and the same exit code."""
+    from repro.analysis.__main__ import _run_contracts as j_run
+    from repro_torch.analysis.__main__ import _run_contracts as t_run
+
+    def lines(out):
+        return [ln for ln in out.splitlines() if ln.startswith("contract ")]
+
+    j_rc = j_run()
+    want = lines(capsys.readouterr().out)
+    t_rc = t_run()
+    got = lines(capsys.readouterr().out)
+    assert got == want
+    assert len(want) == 17 and all(ln.endswith(" ok") for ln in want)
+    assert t_rc == j_rc == 0
