@@ -79,7 +79,17 @@ points at full width and checks what comes out:
    phase 1's mesh and scheduler runs, which like them are bound by the
    host and gate no time, and their records are printed after phase 1's;
    their leaves are too small for the kernel route, so they launch no
-   kernel of the port;
+   kernel of the port; after the child has ended, the A/B driver's six
+   timed modes (the ``perf_iterations`` phase: ``repro_torch.benchmarks.
+   perf_iterations`` at the reference's sizes over a few of its rounds,
+   its log in a temporary file): ``api.run`` against a hand loop of
+   ``api.step``, the wire mode's 32 x 262,144 stacks at b 8 and b 4
+   (``qb_quantize``, ``qb_encode`` and ``qb_decode_reduce``, the
+   aggregates bit for bit the plain route's), the mesh
+   uplinks on a one-rank NCCL group, two-tier against flat, the
+   scheduler's device peak at populations of 256 and 2,048, and the price
+   of checksums and a snapshot every round; the reference's byte counts
+   and the trajectories' agreement are its gates;
 4. training (the ``train`` phase, after serving): the backward kernels of
    flash attention (fed the forward's log-sum-exp, the same bits on a
    second launch) and WKV6 against their plain versions, FedMM training
@@ -225,6 +235,10 @@ from repro_torch.launch.roofline import (  # noqa: E402
     PEAK_FLOPS_F32 as F32_OPS_PER_S)
 from repro_torch.benchmarks.timing import (  # noqa: E402
     OPS_DEQ, OPS_HASH, OPS_REDUCE, OPS_ROUND, bound, time_ms)
+# bit-for-bit equality of two trees of tensors, and a free localhost port
+# for a one-rank process group (the A/B driver's own)
+from repro_torch.benchmarks.perf_iterations import (  # noqa: E402
+    _free_port, bits_equal)
 
 REPLACES = {
     "quantize": "src/repro/kernels/quantize_block.py:205",
@@ -344,15 +358,6 @@ def worst_ratio(got, want, tol: dict) -> float:
     g, w = got.to(torch.float64), want.to(torch.float64)
     return float(((g - w).abs() / (tol["atol"] + tol["rtol"] * w.abs()))
                  .max())
-
-
-def bits_equal(a, b) -> bool:
-    import torch
-    if a.shape != b.shape or a.dtype != b.dtype:
-        return False
-    if a.is_floating_point():
-        return bool(torch.equal(a.view(torch.int32), b.view(torch.int32)))
-    return bool(torch.equal(a, b))
 
 
 # ---------------------------------------------------------------------------
@@ -1082,13 +1087,6 @@ def sanitize_phase(ctx: dict, contracts) -> dict:
 # the mesh phase: the multi-GPU uplinks and the two-tier topology over NCCL
 # ---------------------------------------------------------------------------
 
-def _free_port() -> int:
-    import socket
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
-
 def _compare(a, b, rtol: float, atol: float):
     """``(allclose, largest |a - b|)`` over the leaves of two trees, on the
     card; a client-stacked leaf one client at a time (whole, its
@@ -1105,13 +1103,6 @@ def _compare(a, b, rtol: float, atol: float):
             ok = ok and bool(torch.allclose(p, q, rtol=rtol, atol=atol))
             gap = max(gap, max_abs_err(p, q))
     return ok, gap
-
-
-def _trees_bits_equal(a, b) -> bool:
-    from repro_torch.tree import tree_leaves
-    la, lb = tree_leaves(a), tree_leaves(b)
-    return len(la) == len(lb) and all(bits_equal(x, y)
-                                      for x, y in zip(la, lb))
 
 
 def mesh_phase():
@@ -1253,7 +1244,7 @@ def mesh_phase():
         st_1, h_1, _ = free_run("single_device", "single_device", spec)
         st_g, h_g, _ = free_run("gather", "mesh", spec, mesh=mesh)
         gate("gather_bit_identical",
-             _trees_bits_equal(tuple(st_1)[:3], tuple(st_g)[:3])
+             bits_equal(tuple(st_1)[:3], tuple(st_g)[:3])
              and metrics_equal(h_1, h_g, h_1))
         per_client = spec.compressor.payload_bytes(x0)
         out["payload_bytes_per_client"] = per_client
@@ -1347,7 +1338,7 @@ def mesh_phase():
         st_m, h_m, _ = free_run("two_tier_one_edge_gather", "mesh", one,
                                 **on_emesh)
         gate("one_edge_mesh_gather_bit_identical",
-             _trees_bits_equal(tuple(st_o)[:3], tuple(st_m)[:3])
+             bits_equal(tuple(st_o)[:3], tuple(st_m)[:3])
              and metrics_equal(h_o, h_m, h_o))
         del st_m
         st_r, h_r, _ = free_run("two_tier_one_edge_reduce", "mesh", one,
@@ -1554,7 +1545,7 @@ def sched_phase():
         return host(st), pop, hist
 
     def same_bits(a, b):
-        return _trees_bits_equal(host(a), host(b))
+        return bits_equal(host(a), host(b))
 
     def metrics_equal(h, g, keys):
         return all(torch.equal(h[k], g[k]) for k in keys)
@@ -4081,6 +4072,116 @@ BENCH_ROW_COUNTERS = {
 }
 
 
+# the perf_iterations phase: the A/B driver's rounds, cut through its own
+# rounds= argument (the sizes are the reference's) to keep the phase
+# near 20 s on the H100 (each mode's time is mostly fixed: PERF.md), and
+# its gates' byte counts: the reference's committed rows at these sizes
+# (results/perf_log.json, pairs "wire", "collective" and "hier")
+PERF_ROUNDS = {"driver": 5, "collective": 2, "hier": 2, "scheduler": 1,
+               "faults": 3}
+PERF_WIRE_BYTES = {"b8": 8_519_680, "b4": 4_325_376, "f32": 33_554_432}
+PERF_COLLECTIVE_BYTES = {"gather": 3168, "reduce": 1216, "f32": 9728}
+PERF_HIER_BYTES = {"uplink": 3168, "raw": 4864, "reencode": 1584}
+PERF_PEAK_RATIO_MAX = 1.1
+
+
+def perf_iterations_phase() -> dict:
+    """``repro_torch.benchmarks.perf_iterations``' six timed modes on the
+    card, each once at the reference's sizes over ``PERF_ROUNDS`` rounds
+    (``--faults`` over 3, the fewest at which the 3 snapshots it keeps
+    exist), the log in a temporary file. The kernels' launches are
+    counted over the whole phase (``launches``), from 0. Gates (each
+    raises): ``api.run`` and the hand loop of ``api.step`` end bit for
+    bit equal; the wire mode's dequantized and code-space aggregates bit
+    for bit at b 8 and b 4, each also bit for bit the plain route's on
+    the same inputs (``kernel_threshold=1 << 62``: the quantizer kernels
+    against their plain versions at b 8 and b 4), its fused one within
+    rtol 1e-5 / atol 1e-6, its stacks' bytes ``PERF_WIRE_BYTES``, and
+    ``qb_quantize``,
+    ``qb_encode`` and ``qb_decode_reduce`` each launched; gather bit for
+    bit and reduce allclose (rtol 1e-5 / atol 1e-6) to the single-device
+    run with ``PERF_COLLECTIVE_BYTES``; two-tier's ``PERF_HIER_BYTES``
+    and both within 0.05 of flat; the scheduler's device peak at 2,048
+    clients at most ``PERF_PEAK_RATIO_MAX`` times that at 256; 3
+    snapshots kept. The rounds/s, µs and the durability overhead are
+    reported, not gated: they are the host's. Returns the phase's
+    record."""
+    import tempfile
+    import torch
+    from repro_torch.benchmarks import perf_iterations as P
+    from repro_torch.kernels import quantize_block as qb
+
+    t_phase = time.perf_counter()
+    seconds, rows = {}, {}
+    qb.reset_launches()
+    with tempfile.TemporaryDirectory() as d:
+        log = os.path.join(d, "perf_log_torch.json")
+        for name, fn in (("driver", P.bench_driver), ("wire", P.bench_wire),
+                         ("collective", P.bench_collective),
+                         ("hier", P.bench_hier),
+                         ("scheduler", P.bench_scheduler),
+                         ("faults", P.bench_faults)):
+            kw = ({"rounds": PERF_ROUNDS[name]} if name in PERF_ROUNDS
+                  else {})
+            t = time.perf_counter()
+            out = fn(log_path=log, **kw)
+            torch.cuda.synchronize()
+            seconds[name] = time.perf_counter() - t
+            rows[name] = ([e["result"] for e in out] if isinstance(out, list)
+                          else out["result"])
+            progress(f"perf_iterations {name} ({seconds[name]:.1f} s)")
+        logged = sorted(e["pair"] for e in json.load(open(log)))
+    launches = {k: v for k, v in qb.LAUNCHES.items() if v}
+    require(logged == sorted(["collective", "collective", "driver", "faults",
+                              "hier", "hier", "scheduler", "wire"]),
+            f"perf_iterations: the log holds {logged}")
+
+    driver, wire, sched, faults = (rows[k] for k in ("driver", "wire",
+                                                     "scheduler", "faults"))
+    require(driver["hand_loop_bit_identical"],
+            "perf_iterations --driver: api.run and the hand loop of "
+            "api.step part")
+    require(wire["f32_stack_bytes"] == PERF_WIRE_BYTES["f32"],
+            f"perf_iterations --wire: f32 stack {wire['f32_stack_bytes']}")
+    for b in ("b8", "b4"):
+        r = wire[b]
+        require(r["aggregate_bit_identical"]
+                and r["plain_route_bit_identical"]
+                and r["fused_allclose_vs_code_space"]
+                and r["payload_stack_bytes"] == PERF_WIRE_BYTES[b],
+                f"perf_iterations --wire {b}: {r}")
+    for k in ("quantize_seeded", "encode_seeded", "decode_reduce"):
+        require(wire["launches"].get(k, 0) > 0,
+                f"perf_iterations --wire did not launch {k}: "
+                f"{wire['launches']}")
+    gather, reduce = rows["collective"]
+    require(gather["trajectory_bit_identical"]
+            and reduce["trajectory_allclose_vs_single"]
+            and (gather["collective_wire_bytes_per_round"],
+                 reduce["psum_operand_bytes_per_device"],
+                 gather["f32_stack_bytes_per_round"]) == (
+                PERF_COLLECTIVE_BYTES["gather"],
+                PERF_COLLECTIVE_BYTES["reduce"], PERF_COLLECTIVE_BYTES["f32"]),
+            f"perf_iterations --collective: {rows['collective']}")
+    raw, reenc = rows["hier"]
+    require((raw["uplink_bytes_per_round"], raw["backbone_bytes_per_round"],
+             reenc["backbone_bytes_per_round"]) == (
+                PERF_HIER_BYTES["uplink"], PERF_HIER_BYTES["raw"],
+                PERF_HIER_BYTES["reencode"])
+            and raw["max_abs_diff_vs_flat"] < 0.05
+            and reenc["max_abs_diff_vs_flat"] < 0.05,
+            f"perf_iterations --hier: {rows['hier']}")
+    require(sched["peak_bytes_ratio_big_vs_small"] <= PERF_PEAK_RATIO_MAX,
+            f"perf_iterations --scheduler: peak ratio "
+            f"{sched['peak_bytes_ratio_big_vs_small']}")
+    require(faults["checkpoints_retained"] == 3,
+            f"perf_iterations --faults: {faults['checkpoints_retained']} "
+            f"snapshots kept")
+    return {"phase": "perf_iterations", "rounds": PERF_ROUNDS,
+            "rows": rows, "mode_seconds": seconds, "launches": launches,
+            "seconds": time.perf_counter() - t_phase}
+
+
 def kernel_bench_phase() -> dict:
     """``kernel_bench.run(smoke=True)`` on the card, once, with every
     launch count set to 0 before it: its rows, each kernel row's launches
@@ -4297,6 +4398,9 @@ def main() -> int:
         join_figures(started)
     finally:
         stop_figures(started)
+    _free()
+    perf_out = perf_iterations_phase()
+    emit(dict(perf_out, card=card))
 
     # the quantizer rows count their launches on each FedMM path apart:
     # the single-device rounds, the runtime checks' rounds, the mesh runs,
@@ -4377,14 +4481,19 @@ def main() -> int:
         by_path = row.setdefault("launches_by_path", {})
         for path, counts in (("train", train_launches),
                              ("train_mesh", mesh_launches),
-                             ("kernel_bench", bench["launches"])):
+                             ("kernel_bench", bench["launches"]),
+                             ("perf_iterations", perf_out["launches"])):
             n = sum(counts.get(c, 0) for c in ROW_COUNTS.get(key, (key,)))
             if n:
                 by_path[path] = n
-        # the microbenchmarks' launches are reported beside the paths',
-        # not added to them
+        # the microbenchmarks' and the A/B driver's launches are reported
+        # beside the paths', not added to them
         row["launches"] = sum(n for path, n in by_path.items()
-                              if path != "kernel_bench")
+                              if path not in ("kernel_bench",
+                                              "perf_iterations"))
+    for key in ("quantize_seeded", "encode_seeded", "decode_reduce"):
+        require(kernels[key]["launches_by_path"].get("perf_iterations", 0)
+                > 0, f"{key} was not launched on the perf_iterations path")
     for key, row in bwd_rows.items():
         require(row["launches_by_path"].get("train", 0) > 0,
                 f"{key} was not launched on the train path")

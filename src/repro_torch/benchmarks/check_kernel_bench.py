@@ -72,6 +72,20 @@ def _card() -> str:
         check=True).stdout.strip().splitlines()[0]
 
 
+def write_log(log_path: str, pair: str, entries: list) -> None:
+    """Replace ``pair``'s entries of the log at ``log_path`` with
+    ``entries``; every other entry is written back as it was read."""
+    log = []
+    if os.path.exists(log_path):
+        with open(log_path) as f:
+            log = json.load(f)
+    log = [e for e in log if e.get("pair") != pair] + list(entries)
+    os.makedirs(os.path.dirname(log_path) or ".", exist_ok=True)
+    with open(log_path, "w") as f:
+        json.dump(log, f, indent=1)
+        f.write("\n")
+
+
 def write_baseline(path: str, rows: list, n_runs: int, card: str) -> None:
     import torch
     entry = {
@@ -87,9 +101,7 @@ def write_baseline(path: str, rows: list, n_runs: int, card: str) -> None:
             f"{torch.__version__}"),
         "multi_pod": False,
         "result": {"status": "ok", "rows": rows}}
-    with open(path, "w") as f:
-        json.dump([entry], f, indent=1)
-        f.write("\n")
+    write_log(path, PAIR, [entry])
 
 
 def main(argv=None) -> int:

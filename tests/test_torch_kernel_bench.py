@@ -268,10 +268,29 @@ def test_write_baseline_from_several_runs(tmp_path, capsys, monkeypatch):
     capsys.readouterr()
 
 
+def test_write_baseline_keeps_the_other_pairs(tmp_path, monkeypatch):
+    """Writing the baseline replaces the kernel_bench_smoke entry and
+    keeps every other pair's rows (``perf_iterations``') as they were."""
+    out = tmp_path / "perf_log_torch.json"
+    others = [{"pair": "wire", "variant": "code_space_aggregation",
+               "result": {"status": "ok"}},
+              {"pair": "decode", "variant": "baseline", "result": {}}]
+    out.write_text(json.dumps(
+        [{"pair": "kernel_bench_smoke", "variant": "old"}] + others))
+    monkeypatch.setattr(check_kernel_bench, "_card",
+                        lambda: "NVIDIA H100 80GB HBM3, 700.00 W")
+    path = _write(tmp_path / "run.json", BASE)
+    assert check_kernel_bench.main(["--json", path, "--write-baseline",
+                                    str(out)]) == 0
+    log = json.loads(out.read_text())
+    assert [e["variant"] for e in log if e["pair"] == "kernel_bench_smoke"] \
+        == ["baseline"]
+    assert [e for e in log if e["pair"] != "kernel_bench_smoke"] == others
+
+
 def test_committed_baseline_is_a_card_run():
     log = json.loads((REPO / "results" / "perf_log_torch.json").read_text())
-    assert len(log) == 1
-    entry = log[0]
+    (entry,) = [e for e in log if e["pair"] == "kernel_bench_smoke"]
     assert entry["pair"] == "kernel_bench_smoke"
     assert entry["variant"] == "baseline"
     assert "H100" in entry["hypothesis"] and " W" in entry["hypothesis"]
